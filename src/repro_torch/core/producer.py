@@ -1,0 +1,274 @@
+"""Constants-producer registry: the producer half of the paper's T3 split.
+
+The port's copy of `repro.core.producer`, holding the ``aes`` producer
+(AES-128-CTR XOF, the paper's conformance stream).  A producer turns
+(session material, per-lane session ids, block counters) into the
+constants dict the engines consume: ``rc`` (lanes, n_round_constants)
+int64, ``noise`` (lanes, l) int64 signed or None, ``mats`` (lanes,
+n_matrix_constants) int64 or None.  The key never enters.
+
+On a CUDA device the XOF words come from the AES kernel
+(`kernels.aes.ops.aes_xof_words`); the samplers are plain PyTorch.  On the
+CPU the AES kernel's plain version runs instead.
+
+Usage:
+
+    prod = make_producer(None, params, device="cuda")
+    mat = prod.session_material(nonce)          # host-side, once/session
+    tables = prod.stack_tables([mat, ...])      # device tables
+    consts = prod.produce(tables, session_ids, block_ctrs)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Type, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.params import CipherParams
+from repro_torch.crypto.aes import aes128_key_expand
+from repro_torch.crypto.sampler import (
+    DGaussTable,
+    discrete_gaussian,
+    uniform_mod_q_stream,
+    words_needed_uniform_stream,
+)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.aes.ops import aes_xof_words
+from repro_torch.kernels.build import from_u32_bits
+
+#: Constants-plane kinds a producer can materialize independently.
+PLANES = ("all", "vector", "matrix")
+
+
+def constants_from_words(params: CipherParams, words,
+                         gauss: Optional[DGaussTable], plane: str = "all"):
+    """Shared producer tail: XOF words -> dict(rc=..., noise=..., mats=...).
+
+    words: (..., total) int64 word values.  The word layout is fixed: rc
+    words first, then noise hi, noise lo, then matrix-plane words — the
+    matrix plane draws strictly after the vector plane from the same
+    stream, so presets without matrices are unaffected by it.
+    """
+    if plane not in PLANES:
+        raise ValueError(f"unknown constants plane {plane!r}; have {PLANES}")
+    p = params
+    n_u = p.n_round_constants
+    w_u = words_needed_uniform_stream(n_u)
+    out: Dict[str, Any] = {}
+    if plane in ("all", "vector"):
+        out["rc"] = uniform_mod_q_stream(words[..., :w_u], n_u, p.mod)
+        noise = None
+        if p.n_noise:
+            hi = words[..., w_u : w_u + p.n_noise]
+            lo = words[..., w_u + p.n_noise : w_u + 2 * p.n_noise]
+            noise = discrete_gaussian(hi, lo, gauss)
+        out["noise"] = noise
+    if plane in ("all", "matrix"):
+        mats = None
+        if p.n_matrix_constants:
+            base = w_u + 2 * p.n_noise
+            n_m = p.n_matrix_constants
+            w_m = words_needed_uniform_stream(n_m)
+            mats = uniform_mod_q_stream(words[..., base : base + w_m],
+                                        n_m, p.mod)
+        out["mats"] = mats
+    return out
+
+
+class SessionMaterial(NamedTuple):
+    """Host-side per-session producer material: the raw 16-byte nonce and
+    backend-specific precompiled material (expanded AES round keys, ...)."""
+
+    nonce: bytes
+    payload: Any
+
+
+class ProducerTables(NamedTuple):
+    """Stacked session tables on the producer's device, plus the nonce
+    identities they were stacked from (parallel to the session axis)."""
+
+    device: Any
+    nonces: Tuple[bytes, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProducerCaps:
+    """What one producer backend can do, queried without instantiating it.
+    ``stream`` names the XOF stream it emits."""
+
+    name: str
+    description: str
+    available: bool
+    reason: str = ""
+    stream: Optional[str] = None
+
+
+class ConstantsProducer:
+    """One way to materialize round constants (+ noise) from counters,
+    bound to ``params`` and a device at construction."""
+
+    name: str = "?"
+
+    def __init__(self, params: CipherParams, device=None):
+        self.params = params
+        self.device = resolve_device(device)
+        self._gauss = (
+            DGaussTable.build(params.sigma) if params.n_noise else None
+        )
+        #: XOF words the vector plane (constants + noise) consumes
+        self.vector_words = (
+            words_needed_uniform_stream(params.n_round_constants)
+            + 2 * params.n_noise
+        )
+        #: XOF words one lane consumes in total (+ matrix planes)
+        self.total_words = params.xof_words_per_block()
+
+    @classmethod
+    def query_caps(cls) -> ProducerCaps:
+        raise NotImplementedError
+
+    def session_material(self, nonce) -> SessionMaterial:
+        raise NotImplementedError
+
+    def _stack_payloads(self, materials: List[SessionMaterial]):
+        raise NotImplementedError
+
+    def stack_tables(self, materials: List[SessionMaterial]) -> ProducerTables:
+        return ProducerTables(
+            self._stack_payloads(materials),
+            tuple(m.nonce for m in materials),
+        )
+
+    def plane_words(self, plane: str = "all") -> int:
+        """XOF words one lane draws to materialize ``plane`` (a matrix-only
+        pass still draws the vector-plane prefix of the stream)."""
+        if plane == "vector" or not self.params.n_matrix_constants:
+            return self.vector_words
+        return self.total_words
+
+    def _lane_arrays(self, tables: ProducerTables, session_ids, block_ctrs):
+        sid = np.asarray(session_ids.cpu() if torch.is_tensor(session_ids)
+                         else session_ids, np.int64).reshape(-1)
+        ctr = np.asarray(block_ctrs.cpu() if torch.is_tensor(block_ctrs)
+                         else block_ctrs, np.int64).reshape(-1)
+        if sid.shape != ctr.shape:
+            raise ValueError("session_ids / block_ctrs length mismatch")
+        if sid.size and (sid.min() < 0 or sid.max() >= len(tables.nonces)):
+            raise IndexError(
+                f"session id out of range for {len(tables.nonces)} sessions")
+        return (torch.as_tensor(sid, device=self.device),
+                torch.as_tensor(ctr, device=self.device))
+
+    def produce(self, tables: ProducerTables, session_ids, block_ctrs,
+                plane: str = "all"):
+        """Materialize constants for per-lane (session, counter) pairs on
+        the producer's device, filtered to the requested plane."""
+        raise NotImplementedError
+
+    def constants_for_nonce(self, nonce, block_ctrs):
+        """Single-stream path: one nonce, a vector of counters (Cipher)."""
+        tables = self.stack_tables([self.session_material(nonce)])
+        ctrs = np.asarray(block_ctrs, np.int64).reshape(-1)
+        return self.produce(tables, np.zeros(ctrs.shape, np.int64), ctrs)
+
+    def __repr__(self):
+        return f"<ConstantsProducer {self.name} params={self.params.name}>"
+
+
+# ==========================================================================
+# Registry
+# ==========================================================================
+_REGISTRY: Dict[str, Type[ConstantsProducer]] = {}
+
+
+def register_producer(cls: Type[ConstantsProducer]) -> Type[ConstantsProducer]:
+    if cls.name in _REGISTRY:
+        raise ValueError(f"producer {cls.name!r} already registered")
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def registered_producers() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_producer(spec: Optional[str],
+                     params: Optional[CipherParams] = None) -> str:
+    """``spec`` is a producer name or None (= the preset's declared XOF)."""
+    if spec is None:
+        spec = params.xof if params is not None else "aes"
+    if spec not in _REGISTRY:
+        raise ValueError(
+            f"unknown constants producer {spec!r}; registered producers: "
+            f"{list(registered_producers())}"
+        )
+    return spec
+
+
+ProducerSpec = Union[str, ConstantsProducer, None]
+
+
+def make_producer(spec: ProducerSpec, params: CipherParams, *,
+                  device=None) -> ConstantsProducer:
+    """Resolve ``spec`` and bind it to (params, device).  An instance
+    passes through if it is bound to the same params and device."""
+    if isinstance(spec, ConstantsProducer):
+        if spec.params != params:
+            raise ValueError(
+                f"producer {spec.name!r} is bound to different params "
+                f"(producer has {spec.params.name})")
+        if device is not None and spec.device != resolve_device(device):
+            raise ValueError(
+                f"producer {spec.name!r} lives on {spec.device}, not "
+                f"{device}")
+        return spec
+    name = resolve_producer(spec, params)
+    cls = _REGISTRY[name]
+    caps = cls.query_caps()
+    if not caps.available:
+        raise RuntimeError(
+            f"constants producer {name!r} unavailable here: {caps.reason}")
+    return cls(params, device=device)
+
+
+# ==========================================================================
+# Backends
+# ==========================================================================
+@register_producer
+class AesProducer(ConstantsProducer):
+    """AES-128-CTR XOF — the paper's §IV-D conformance stream.  Per-session
+    material: expanded round keys and the 12-byte nonce prefix."""
+
+    name = "aes"
+
+    @classmethod
+    def query_caps(cls) -> ProducerCaps:
+        return ProducerCaps(
+            name=cls.name,
+            description="AES-128-CTR XOF (paper conformance stream)",
+            available=True,
+            stream="aes",
+        )
+
+    def session_material(self, nonce) -> SessionMaterial:
+        nonce = np.asarray(nonce, dtype=np.uint8).reshape(16)
+        return SessionMaterial(
+            nonce.tobytes(),
+            (aes128_key_expand(nonce), nonce[:12].copy()),
+        )
+
+    def _stack_payloads(self, materials):
+        rk = np.stack([m.payload[0] for m in materials])     # (S, 11, 16)
+        n12 = np.stack([m.payload[1] for m in materials])    # (S, 12)
+        return (torch.as_tensor(rk, dtype=torch.uint8, device=self.device),
+                torch.as_tensor(n12, dtype=torch.uint8, device=self.device))
+
+    def produce(self, tables, session_ids, block_ctrs, plane: str = "all"):
+        rk, n12 = tables.device
+        sid, ctr = self._lane_arrays(tables, session_ids, block_ctrs)
+        words = aes_xof_words(rk, n12, sid, ctr, self.plane_words(plane))
+        return constants_from_words(self.params, from_u32_bits(words),
+                                    self._gauss, plane)

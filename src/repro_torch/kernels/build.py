@@ -1,0 +1,183 @@
+"""Build and load the port's CUDA kernels (one shared library, ctypes).
+
+The three sources under ``repro_torch/csrc`` have a plain C interface and
+no PyTorch headers, so ``nvcc`` builds them in seconds.  The library is
+built at first use into ``<checkout>/build/kernels/``, named by a content
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the cached file.  Each source compiles in its own
+``nvcc`` process, all started together, then one link step.
+
+Every C entry point takes device pointers, sizes and the caller's CUDA
+stream, launches without synchronising, and returns ``cudaGetLastError()``;
+:func:`check` raises on anything but 0.  Each kernel wrapper counts its
+launches in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("aes.cu", "mrmc.cu", "keystream.cu")
+HEADERS = ("mrmc.cuh",)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Launches per kernel wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"aes_ctr": 0, "aes_xof": 0, "mrmc": 0, "keystream": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
+_SIGNATURES = {
+    "repro_aes_ctr": [_P, _P, _P, _P, _P, _I, _P],
+    "repro_aes_xof": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "repro_mrmc": [_I, _P, _P, _I, _U32, _U64, _P],
+    "repro_keystream": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U32,
+                        _U64, _P],
+}
+
+_lib = None
+#: seconds the last build took (0.0 when the cached library was loaded)
+build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+            "built from source at first use on a machine with the toolkit")
+    return str(path)
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join((ARCH,) + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libreprokernels-{source_hash()}.so"
+
+
+def build_log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
+def _build(target: Path) -> None:
+    global build_seconds
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"tmp-{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    procs = []
+    for src in SOURCES:
+        obj = tmp / (src + ".o")
+        cmd = [nvcc, ARCH, *FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, objs, failed = [], [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== nvcc {src} (rc {proc.returncode})\n{out}")
+        objs.append(str(obj))
+        if proc.returncode != 0:
+            failed.append(src)
+    if not failed:
+        so = tmp / target.name
+        link = subprocess.run([nvcc, ARCH, "-shared", "-o", str(so), *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+    text = "\n".join(log)
+    target.with_suffix(".log").write_text(text)
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"CUDA kernel build failed ({', '.join(failed)}):"
+                           f"\n{text}")
+    os.replace(so, target)
+    shutil.rmtree(tmp, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+
+
+def library():
+    """The loaded kernel library, built first if the sources changed."""
+    global _lib
+    if _lib is None:
+        path = library_path()
+        if not path.exists():
+            _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(t, name: str, dtype, shape=None):
+    """Check a kernel operand: on the card, contiguous, right dtype/shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def u32_bits(x):
+    """int64 values in [0, 2^32) -> int32 tensor holding the same bits."""
+    import torch
+
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def from_u32_bits(x):
+    """int32 bit patterns -> int64 values in [0, 2^32)."""
+    import torch
+
+    return x.to(torch.int64) & 0xFFFFFFFF

@@ -12,6 +12,11 @@ def pytest_configure(config):
         "slow: long-running (full-lane interpret-mode Pallas sweeps); "
         "excluded from the fast CI lap (scripts/ci.sh)",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels); skipped "
+        "without one",
+    )
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+This file imports only the port (no JAX), so it runs on a machine with a
+card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Every test here needs a CUDA device and skips without one; the check is
+made inside a fixture, never at import.  Comparisons are exact.
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.core import schedule as S  # noqa: E402
+from repro_torch.core.cipher import CipherBatch, make_cipher  # noqa: E402
+from repro_torch.core.farm import KeystreamFarm, plan_windows  # noqa: E402
+from repro_torch.core.params import REGISTRY, get_params  # noqa: E402
+from repro_torch.crypto.aes import aes128_key_expand  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.aes.ops import (  # noqa: E402
+    aes_ctr_kernel_apply,
+    aes_xof_words,
+)
+from repro_torch.kernels.aes.ref import aes_ctr_ref, aes_xof_ref  # noqa: E402
+from repro_torch.kernels.keystream.ops import keystream_kernel_apply  # noqa: E402
+from repro_torch.kernels.keystream.ref import keystream_ref  # noqa: E402
+from repro_torch.kernels.mrmc.ops import mrmc_kernel_apply  # noqa: E402
+from repro_torch.kernels.mrmc.ref import mrmc_ref  # noqa: E402
+from repro_torch.serve.hhe_loop import HHERequest, HHEServer  # noqa: E402
+
+PRESETS = sorted(REGISTRY)
+
+# SHA-256 of the little-endian keystream words of make_cipher(name,
+# seed=123) over block counters 0..3 — the reference's golden digests.
+GOLDEN = {
+    ("hera-80", "plain"): "c5a66b2b098fede998837c2f7596f0279d9b44968561a3d90058713c5410e052",
+    ("hera-128a", "plain"): "894abb58f75f5306e40200bc670d9e4672dd5e345d1f0ad97545c22f1b1132b2",
+    ("rubato-128s", "plain"): "9c46b0244571ba344f043498875dea5576c0a6775e39676294191a7e0adf315f",
+    ("rubato-128s", "noise"): "e5d632a451be7b27918ac669ef8bf177fd814b779658d28550e396eedc97ee75",
+    ("rubato-128m", "plain"): "28a0da4bdad86ca4d35079d7997441efc183508227ff3be81cd271c950b86d8b",
+    ("rubato-128m", "noise"): "37acf76c4ab8438e866e6ee38f69c32170fb09462d6012991e3787953921b9ee",
+    ("rubato-128l", "plain"): "286453548ffff0abc2231c2603cd895410bab849f334f58b6eff6276d74a5471",
+    ("rubato-128l", "noise"): "f89adf017a718905d2e7c40eaac8aebb014111ecba24975b52b75ac7cfca2099",
+    ("pasta-128s", "plain"): "021dbc05a9e7b35b06bf077da4d1b657558fdb1156173d6c1ccb69e5e58ff586",
+    ("pasta-128l", "plain"): "5d8b9aec6b5d50f63d64477d3ff1e45078047c98ed92c4473fc4d0dabcf92331",
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _exact(got, want):
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0)
+
+
+def _inputs(name, lanes, seed, device):
+    p = get_params(name)
+    rng = np.random.default_rng(seed)
+    q = p.mod.q
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    key = t(rng.integers(1, q, size=(p.n,)))
+    rc = t(rng.integers(0, q, size=(lanes, p.n_round_constants)))
+    noise = (t(rng.integers(-16, 17, size=(lanes, p.l)))
+             if p.n_noise else None)
+    mats = (t(rng.integers(0, q, size=(lanes, p.n_matrix_constants)))
+            if p.n_matrix_constants else None)
+    return p, key, rc, noise, mats
+
+
+@pytest.mark.gpu
+def test_aes_ctr_kernel_fips197(cuda):
+    key = np.arange(16, dtype=np.uint8)
+    pt = bytes.fromhex("00112233445566778899aabbccddeeff")
+    out = aes_ctr_kernel_apply(
+        aes128_key_expand(key), np.frombuffer(pt[:12], np.uint8),
+        torch.tensor([int.from_bytes(pt[12:], "big")], device=cuda))
+    assert bytes(out.cpu().numpy()[0]).hex() == \
+        "69c4e0d86a7b0430d8cdb78070b4c55a"
+
+
+@pytest.mark.gpu
+def test_aes_ctr_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        rk = aes128_key_expand(rng.integers(0, 256, 16, dtype=np.uint8))
+        n12 = rng.integers(0, 256, 12, dtype=np.uint8)
+        ctr = torch.as_tensor(rng.integers(0, 2**32, 4096), device=cuda)
+        _exact(aes_ctr_kernel_apply(rk, n12, ctr), aes_ctr_ref(rk, n12, ctr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [1, 7, 112, 1000])
+def test_aes_xof_kernel_matches_plain(cuda, n_words):
+    rng = np.random.default_rng(n_words)
+    nonces = rng.integers(0, 256, (3, 16), dtype=np.uint8)
+    rk = torch.as_tensor(np.stack([aes128_key_expand(n) for n in nonces]),
+                         device=cuda)
+    n12 = torch.as_tensor(nonces[:, :12].copy(), device=cuda)
+    sid = torch.as_tensor(rng.integers(0, 3, 777), device=cuda)
+    ctr = torch.as_tensor(rng.integers(0, 2**16, 777), device=cuda)
+    _exact(aes_xof_words(rk, n12, sid, ctr, n_words),
+           aes_xof_ref(rk, n12, sid, ctr, n_words))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS)
+def test_mrmc_kernel_matches_plain(cuda, name):
+    p = get_params(name)
+    x = torch.as_tensor(np.random.default_rng(2).integers(
+        0, p.mod.q, size=(4096, p.n)), device=cuda)
+    _exact(mrmc_kernel_apply(p, x), mrmc_ref(p, x))
+
+
+CASES = [(name, variant, reduction, with_noise)
+         for name in PRESETS
+         for variant in S.VARIANTS
+         for reduction in ("lazy", "eager")
+         for with_noise in ((False, True) if get_params(name).n_noise
+                            else (False,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,variant,reduction,with_noise", CASES)
+def test_keystream_kernel_matches_plain(cuda, name, variant, reduction,
+                                        with_noise):
+    p, key, rc, noise, mats = _inputs(name, 1000, 3, cuda)
+    noise = noise if with_noise else None
+    before = build.LAUNCHES["keystream"]
+    got = keystream_kernel_apply(p, key, rc, noise, variant=variant,
+                                 mats=mats, reduction=reduction)
+    assert build.LAUNCHES["keystream"] == before + 1
+    _exact(got, keystream_ref(p, key, rc, noise, variant=variant, mats=mats,
+                              reduction=reduction))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kind", sorted(GOLDEN))
+def test_golden_digests_through_kernels(cuda, name, kind):
+    """The reference's golden digests through the AES-kernel producer and
+    the fused-kernel engine."""
+    c = make_cipher(name, seed=123, engine="cuda", device=cuda)
+    k = c.round_constant_stream(np.arange(4))
+    z = c.keystream_from_constants(k["rc"], k["noise"] if kind == "noise"
+                                   else None, k["mats"])
+    digest = hashlib.sha256(
+        z.cpu().numpy().astype("<u4").tobytes()).hexdigest()
+    assert digest == GOLDEN[(name, kind)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hera-128a", "rubato-128l", "pasta-128s"])
+@pytest.mark.parametrize("depth,matrix_depth", [(1, 1), (2, 1), (3, 2)])
+def test_card_farm_matches_cpu_farm(cuda, name, depth, matrix_depth):
+    """Farm windows on the card (side-stream producer, kernel engine)
+    equal the CPU farm's plain path byte for byte, in FIFO order."""
+    outs = []
+    for device in (cuda, "cpu"):
+        cb = CipherBatch(name, seed=5, device=device)
+        sessions = cb.add_sessions(6)
+        farm = KeystreamFarm(cb, depth=depth, matrix_depth=matrix_depth)
+        plans = plan_windows(sessions, 5, window=8)
+        outs.append([(p.session_ids.copy(), z.cpu())
+                     for p, z in farm.run(plans)])
+    for (sa, za), (sb, zb) in zip(*outs):
+        np.testing.assert_array_equal(sa, sb)
+        _exact(za, zb)
+
+
+@pytest.mark.gpu
+def test_card_server_roundtrip(cuda):
+    cb = CipherBatch("rubato-128s", seed=9, device=cuda)
+    srv = HHEServer(cb, window=64, engine="cuda", depth=2)
+    s = srv.open_session()
+    m = (np.arange(40 * cb.params.l).reshape(40, -1) % 97 - 48) / 64.0
+    srv.submit(HHERequest(s.index, op="encrypt", payload=m, delta=64.0))
+    (enc,) = srv.flush()
+    ref = CipherBatch("rubato-128s", key=cb.key.cpu(), device="cpu")
+    ref.add_session(s.nonce)
+    dec = ref.decrypt(enc.result, np.zeros(40, np.int64), enc.block_ctrs,
+                      delta=64.0)
+    np.testing.assert_array_equal(dec.numpy(), m.astype(np.float32))

@@ -3,18 +3,19 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the three CUDA sources (one ``nvcc`` each, in parallel)
    into ``build/kernels/`` and print the build time and register/spill use;
-3. kernels against their plain PyTorch versions on the card, exactly:
-   AES (FIPS-197, 4096 random counters x 3 sessions, XOF words), MRMC for
-   v in {4, 6, 8} with PASTA's branch folding, and the fused keystream for
-   7 presets x {normal, alternating} x {lazy, eager} x noise at 1000 lanes
-   fed by the AES-kernel producer;
+3. kernels against their plain PyTorch versions on the card, exactly, at
+   lane counts that cut a lane group and a thread block (1, 31, 1000,
+   4096): AES (FIPS-197, CTR counters x 3 sessions, XOF words of several
+   sessions), MRMC for v in {4, 6, 8} with PASTA's branch folding, and the
+   fused keystream for 7 presets x {normal, alternating} x {lazy, eager} x
+   noise, fed by the AES-kernel producer;
 4. the reference's 10 golden keystream digests through the kernel
    producer and the kernel engine;
 5. the main path: ``HHEServer`` at window 4096 with 64 sessions for
@@ -22,7 +23,11 @@ Phases (any failure exits non-zero; nothing is caught):
    all five ops, launch counts reset just before and read just after, then
    every round trip and 256 sampled lanes held against the ``ref`` engine;
 6. kernel times at the serving shapes (CUDA events), each beside its plain
-   version and its bound.
+   version and its bound.  When ``--baseline DIR`` names an unpacked
+   earlier commit of this repository, its kernels are timed on the same
+   inputs in a child process, in turns with this tree's (baseline, this,
+   this, baseline), and each kernel entry carries the baseline's time as
+   ``prev_ms``.
 
 The last three lines of standard output are the kernel JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -40,28 +45,37 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 WINDOW = 4096          # serving window (lanes)
 SESSIONS = 64
-CHECK_LANES = 1000     # ragged lane count of the kernel-vs-plain sweep
 SERVE_PRESETS = (("hera-128a", 1), ("rubato-128l", 1), ("pasta-128l", 2))
+
+CHECK_LANE_COUNTS = (1, 31, 1000, 4096)  # cut a lane group / thread block
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-# 32-bit integer operations: the SM issues INT32 on 64 lanes per clock,
-# half its 128 FP32 lanes, so half the 67 TFLOP/s non-tensor FP32 rate.
-INT_OPS_PER_S = 33.5e12
+# 32-bit integer instructions: 132 SMs x 64 INT32 lanes x ~1.98 GHz.  (The
+# 67 TFLOP/s FP32 figure counts an FMA as two operations, so half of it
+# would overstate the integer rate twofold.)
+INT_OPS_PER_S = 16.7e12
+# Shared-memory words: 132 SMs x 32 banks of 4 bytes x ~1.98 GHz, i.e. one
+# conflict-free 32-lane lookup per SM and clock.
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 
 # Lower-bound integer operation counts the bounds use.  A modular product
 # needs at least three multiplies (the 32x32->64 product, the Barrett
 # quotient, the remainder); a modular add two (add, conditional subtract);
 # a small-constant multiply-add of the static mix one; a dense 64-bit
-# multiply-add two; a row reduction three.  An AES block in T-table form
-# needs 16 lookups and 16 XORs per round, plus the initial key XOR.
+# multiply-add two; a row reduction three.
 OPS = {"modmul": 3, "modadd": 2, "mac_small": 1, "mac_dense": 2,
        "reduce": 3}
-AES_OPS_PER_BLOCK = 16 + 10 * 32
+# An AES block in T-table form: 16 shared-memory lookups a round, and INT32
+# instructions for one byte extract per lookup plus the XORs, three inputs
+# folded into one LOP3 (2 per column and round: four lookups and the round
+# key; 4 for the initial key XOR).  The lookups set the bound: 5 SM clocks a
+# block against 3.8 for the 244 instructions.
+AES_LOOKUPS_PER_BLOCK = 10 * 16
+AES_INT_OPS_PER_BLOCK = AES_LOOKUPS_PER_BLOCK + 4 + 10 * 4 * 2
 
 # SHA-256 of the little-endian keystream words of make_cipher(name,
 # seed=123) over block counters 0..3: the JAX reference's golden digests
@@ -143,9 +157,48 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph after
+    a warm-up call, the graph replayed three times between CUDA events.
+    This is the card's time for the calls' work without the host's
+    dispatch between them (which :func:`time_ms` includes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def bound(nbytes: float, ops: float, lookups: float = 0.0):
+    """Least ms for the work, the contract's ``bound_by`` ("bytes" or
+    "operations") and the limit that sets it: the bytes over the HBM rate,
+    the INT32 instructions over their issue rate, or the shared-memory
+    lookups over the shared-memory rate (operations on their own pipe)."""
+    times = {"HBM bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "INT32 instructions": ops / INT_OPS_PER_S * 1e3,
+             "shared-memory lookups": lookups / SMEM_WORDS_PER_S * 1e3}
+    limit = max(times, key=times.get)
+    return (times[limit], "bytes" if limit == "HBM bytes" else "operations",
+            limit)
+
+
+def aes_bound(nbytes: float, blocks: int):
+    return bound(nbytes, blocks * AES_INT_OPS_PER_BLOCK,
+                 blocks * AES_LOOKUPS_PER_BLOCK)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +219,7 @@ def check_kernels(dev, errors: Errors) -> None:
     from repro_torch.kernels.mrmc.ref import mrmc_ref
 
     rng = np.random.default_rng(2026)
+    top = max(CHECK_LANE_COUNTS)
     # C: FIPS-197 appendix C.1 through the CTR entry point
     pt = bytes.fromhex("00112233445566778899aabbccddeeff")
     fips = aes_ctr_kernel_apply(
@@ -174,22 +228,27 @@ def check_kernels(dev, errors: Errors) -> None:
         torch.tensor([int.from_bytes(pt[12:], "big")], device=dev))
     check(bytes(fips.cpu().numpy()[0]).hex()
           == "69c4e0d86a7b0430d8cdb78070b4c55a", "AES FIPS-197 vector")
-    nonces = rng.integers(0, 256, (3, 16), dtype=np.uint8)
-    for nonce in nonces:
+    nonces = rng.integers(0, 256, (5, 16), dtype=np.uint8)
+    for nonce in nonces[:3]:
         rk = aes128_key_expand(nonce)
-        ctr = torch.as_tensor(rng.integers(0, 2**32, 4096), device=dev)
-        errors.same("aes_ctr", aes_ctr_kernel_apply(rk, nonce[:12], ctr),
-                    aes_ctr_ref(rk, nonce[:12], ctr), "aes_ctr 4096 lanes")
+        ctr = torch.as_tensor(rng.integers(0, 2**32, top), device=dev)
+        for n in CHECK_LANE_COUNTS:
+            errors.same("aes_ctr", aes_ctr_kernel_apply(rk, nonce[:12], ctr[:n]),
+                        aes_ctr_ref(rk, nonce[:12], ctr[:n]),
+                        f"aes_ctr {n} lanes")
     rk_t = torch.as_tensor(np.stack([aes128_key_expand(n) for n in nonces]),
                            device=dev)
     n12_t = torch.as_tensor(nonces[:, :12].copy(), device=dev)
-    sid = torch.as_tensor(rng.integers(0, 3, 4096), device=dev)
-    ctr = torch.as_tensor(rng.integers(0, 2**16, 4096), device=dev)
-    for n_words in (1, 115, 1000):
-        errors.same("aes_xof", aes_xof_words(rk_t, n12_t, sid, ctr, n_words),
-                    aes_xof_ref(rk_t, n12_t, sid, ctr, n_words),
-                    f"aes_xof 4096 lanes x {n_words} words")
-    log("  aes: FIPS-197 ok, 3 sessions x 4096 counters exact")
+    sid = torch.as_tensor(rng.integers(0, len(nonces), top), device=dev)
+    ctr = torch.as_tensor(rng.integers(0, 2**16, top), device=dev)
+    for n_words in (1, 7, 96, 115, 1000, 2752):
+        for n in CHECK_LANE_COUNTS:
+            errors.same("aes_xof",
+                        aes_xof_words(rk_t, n12_t, sid[:n], ctr[:n], n_words),
+                        aes_xof_ref(rk_t, n12_t, sid[:n], ctr[:n], n_words),
+                        f"aes_xof {n} lanes x {n_words} words")
+    log(f"  aes: FIPS-197 ok; CTR and XOF ({len(nonces)} sessions) exact at "
+        f"{CHECK_LANE_COUNTS} lanes")
 
     # B: v = 4, 6, 8 with PASTA's two branches folded into the lane axis
     for name in ("hera-128a", "rubato-128m", "rubato-128l", "pasta-128s",
@@ -201,29 +260,35 @@ def check_kernels(dev, errors: Errors) -> None:
                     f"mrmc {name}")
     log("  mrmc: v=4,6,8 (+2 branches) x 4096 lanes exact")
 
-    # A: every preset x variant x reduction x noise, AES-kernel producer
+    # A: every preset x variant x reduction x noise x lane count, planes
+    # from the AES-kernel producer (leading rows of one 4096-lane draw)
     n_cases = 0
     for name in sorted(REGISTRY):
         cb = CipherBatch(name, seed=7, device=dev)
         cb.add_sessions(8)
-        sids = rng.integers(0, 8, CHECK_LANES)
-        ctrs = rng.integers(0, 2**16, CHECK_LANES)
-        k = cb.round_constant_stream(sids, ctrs)
+        k = cb.round_constant_stream(rng.integers(0, 8, top),
+                                     rng.integers(0, 2**16, top))
         p = cb.params
-        for variant in S.VARIANTS:
-            for reduction in ("lazy", "eager"):
-                for noise in ((None, k["noise"]) if p.n_noise else (None,)):
-                    got = keystream_kernel_apply(
-                        p, cb.key, k["rc"], noise, variant=variant,
-                        mats=k["mats"], reduction=reduction)
-                    want = keystream_ref(p, cb.key, k["rc"], noise,
-                                         variant=variant, mats=k["mats"],
-                                         reduction=reduction)
-                    errors.same("keystream", got, want,
-                                f"keystream {name}/{variant}/{reduction}/"
-                                f"noise={noise is not None}")
-                    n_cases += 1
-    log(f"  keystream: {n_cases} cases x {CHECK_LANES} lanes exact")
+        for n in CHECK_LANE_COUNTS:
+            rows = {key: None if v is None else v[:n] for key, v in k.items()}
+            for variant in S.VARIANTS:
+                for reduction in ("lazy", "eager"):
+                    for noise in ((None, rows["noise"]) if p.n_noise
+                                  else (None,)):
+                        got = keystream_kernel_apply(
+                            p, cb.key, rows["rc"], noise, variant=variant,
+                            mats=rows["mats"], reduction=reduction)
+                        want = keystream_ref(p, cb.key, rows["rc"], noise,
+                                             variant=variant,
+                                             mats=rows["mats"],
+                                             reduction=reduction)
+                        errors.same("keystream", got, want,
+                                    f"keystream {name}/{variant}/{reduction}"
+                                    f"/noise={noise is not None}/{n} lanes")
+                        n_cases += 1
+        del k
+    log(f"  keystream: {n_cases} cases (preset x variant x mode x noise x "
+        f"lanes {CHECK_LANE_COUNTS}) exact")
 
 
 # ---------------------------------------------------------------------------
@@ -389,8 +454,9 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
 def window_breakdown(dev, name: str, matrix_depth: int, seed: int) -> dict:
     """Where one serving window's time goes (host clock around
     synchronised steps, median over windows): the producer (AES kernel +
-    plain samplers, on the farm's side stream), the consumer (layout copy
-    + keystream kernel), the copy of the keystream to the host; and the
+    plain samplers, on the farm's side stream), the consumer (the
+    keystream kernel on the producer's planes, no copy), the copy of the
+    keystream to the host; and the
     per-window time of the farm's FIFO at depth 1 (serialised) against
     depth 2 (producer of window i+1 beside the consumer of window i)."""
     import torch
@@ -436,11 +502,86 @@ def window_breakdown(dev, name: str, matrix_depth: int, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
-def time_kernels(dev, errors: Errors) -> dict:
+def timing_inputs(dev, name: str, index: int):
+    """One serving window's inputs for a preset, from seeds alone (the
+    same in this tree and in a baseline tree): params, the batch, lane
+    session ids and counters, the producer's planes."""
+    from repro_torch.core.cipher import CipherBatch
+
+    rng = np.random.default_rng(11 + index)
+    cb = CipherBatch(name, seed=3, device=dev)
+    cb.add_sessions(SESSIONS)
+    sids = rng.integers(0, SESSIONS, WINDOW)
+    ctrs = rng.integers(0, 2**16, WINDOW)
+    return cb.params, cb, sids, ctrs, cb.round_constant_stream(sids, ctrs)
+
+
+def main_kernel_times(dev) -> dict:
+    """Per preset: the keystream kernel alone and through its wrapper,
+    the aes_xof kernel on the window's whole XOF draw, MRMC, and (on the
+    head preset) aes_ctr — the numbers this tree and a baseline tree
+    both report, through the entry points both have.  ``*_ms`` is device
+    time (:func:`graph_ms`); ``*_host_ms`` and the operand preparation
+    are timed eagerly, host dispatch included."""
     import torch
 
-    from repro_torch.core.cipher import CipherBatch
-    from repro_torch.core.params import REGISTRY, get_params
+    from repro_torch.core.params import REGISTRY
+    from repro_torch.crypto.aes import aes128_key_expand
+    from repro_torch.kernels.aes.ops import aes_ctr_kernel_apply, aes_xof_words
+    from repro_torch.kernels.keystream import ops as KO
+    from repro_torch.kernels.mrmc import ops as MO
+
+    # operand preparation in this tree; a baseline tree from before the
+    # kernel read the producer's planes in place names its layout copy
+    # lane_major_inputs (the fallback serves only such a baseline)
+    prepare = getattr(KO, "kernel_operands", None) or KO.lane_major_inputs
+    out = {}
+    for index, name in enumerate(sorted(REGISTRY)):
+        p, cb, sids, ctrs, k = timing_inputs(dev, name, index)
+        args = (p, cb.key, k["rc"], k["noise"])
+        ops = prepare(*args, mats=k["mats"])
+        r = {"keystream_ms": graph_ms(
+                 lambda: KO.launch_keystream(p, ops), 20),
+             "keystream_host_ms": time_ms(
+                 lambda: KO.launch_keystream(p, ops), 20),
+             "keystream_wrapper_ms": graph_ms(
+                 lambda: KO.keystream_kernel_apply(*args, mats=k["mats"]),
+                 10),
+             "keystream_prepare_ms": time_ms(
+                 lambda: prepare(*args, mats=k["mats"]), 10)}
+        rk, n12 = cb.xof_tables().device
+        sid_t = torch.as_tensor(sids, device=dev)
+        ctr_t = torch.as_tensor(ctrs, device=dev)
+        n_words = p.xof_words_per_block()
+        r["aes_xof_ms"] = graph_ms(
+            lambda: aes_xof_words(rk, n12, sid_t, ctr_t, n_words), 10)
+        r["aes_xof_host_ms"] = time_ms(
+            lambda: aes_xof_words(rk, n12, sid_t, ctr_t, n_words), 10)
+        x = torch.as_tensor(np.random.default_rng(5).integers(
+            0, p.mod.q, (WINDOW, p.n)), device=dev)
+        x_lm = MO.lane_major_states(p, x)
+        r["mrmc_ms"] = graph_ms(lambda: MO.launch_mrmc(p, x_lm), 20)
+        if name == HEAD:
+            nonce = np.arange(16, dtype=np.uint8)
+            rk1 = torch.as_tensor(aes128_key_expand(nonce), device=dev)
+            c = torch.as_tensor(np.arange(WINDOW), device=dev)
+            r["aes_ctr_ms"] = graph_ms(
+                lambda: aes_ctr_kernel_apply(rk1, rk1[0, :12], c), 50)
+        out[name] = r
+        del k, ops
+        torch.cuda.empty_cache()
+    return out
+
+
+HEAD = "pasta-128l"
+
+
+def time_kernels(dev, errors: Errors) -> dict:
+    """Plain versions, exactness at the serving shapes and the bounds,
+    per preset (the kernel times come from :func:`main_kernel_times`)."""
+    import torch
+
+    from repro_torch.core.params import REGISTRY
     from repro_torch.crypto.aes import aes128_key_expand
     from repro_torch.kernels.aes.ops import aes_ctr_kernel_apply, aes_xof_words
     from repro_torch.kernels.aes.ref import aes_ctr_ref, aes_xof_ref
@@ -449,104 +590,191 @@ def time_kernels(dev, errors: Errors) -> dict:
     from repro_torch.kernels.mrmc import ops as MO
     from repro_torch.kernels.mrmc.ref import mrmc_ref
 
-    rng = np.random.default_rng(11)
     lanes = WINDOW
-    rows = {}
     per = {"keystream": {}, "aes_xof": {}, "mrmc": {}}
-    for name in sorted(REGISTRY):
-        p = get_params(name)
-        cb = CipherBatch(name, seed=3, device=dev)
-        cb.add_sessions(SESSIONS)
-        sids = rng.integers(0, SESSIONS, lanes)
-        ctrs = rng.integers(0, 2**16, lanes)
-        k = cb.round_constant_stream(sids, ctrs)
+    for index, name in enumerate(sorted(REGISTRY)):
+        p, cb, sids, ctrs, k = timing_inputs(dev, name, index)
         noise = k["noise"]
-        # keystream: layout copy, kernel alone, plain version
-        planes = KO.lane_major_inputs(p, cb.key, k["rc"], noise,
-                                      mats=k["mats"])
-        copy_ms = time_ms(lambda: KO.lane_major_inputs(
-            p, cb.key, k["rc"], noise, mats=k["mats"]), 10)
-        kern_ms = time_ms(lambda: KO.launch_keystream(p, planes), 20)
         want = keystream_ref(p, cb.key, k["rc"], noise, mats=k["mats"])
-        errors.same("keystream", KO.launch_keystream(p, planes).T, want,
-                    f"keystream {name} at {lanes} lanes")
+        errors.same("keystream", KO.keystream_kernel_apply(
+            p, cb.key, k["rc"], noise, mats=k["mats"]), want,
+            f"keystream {name} at {lanes} lanes")
         plain_ms = time_ms(lambda: keystream_ref(
             p, cb.key, k["rc"], noise, mats=k["mats"]), 3)
         w = KO.work_per_lane(p)
         ops = lanes * sum(OPS[x] * w[x] for x in OPS)
-        words_in = p.n_round_constants + p.n_noise + p.n_matrix_constants
-        nbytes = 4 * lanes * (words_in + p.l) + 4 * p.n
-        b_ms, b_by = bound(nbytes, ops)
+        n_noise = p.n_noise if noise is not None else 0
+        words = lanes * (p.n_round_constants + n_noise
+                         + p.n_matrix_constants + p.l) + p.n
+        b_ms, b_by, b_lim = bound(8 * words, ops)
         per["keystream"][name] = {
-            "ms": kern_ms, "copy_ms": copy_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_limit": b_lim,
+            "bound_ms_int32_planes": bound(4 * words, ops)[0],
+            "bytes": 8 * words, "ops": ops}
         # aes_xof: the producer's whole XOF draw for one window
         rk, n12 = cb.xof_tables().device
         sid_t = torch.as_tensor(sids, device=dev)
         ctr_t = torch.as_tensor(ctrs, device=dev)
         n_words = p.xof_words_per_block()
-        x_ms = time_ms(lambda: aes_xof_words(rk, n12, sid_t, ctr_t, n_words),
-                       10)
-        got = aes_xof_words(rk, n12, sid_t, ctr_t, n_words)
-        want = aes_xof_ref(rk, n12, sid_t, ctr_t, n_words)
-        errors.same("aes_xof", got, want, f"aes_xof {name} at {lanes} lanes")
-        del got, want
+        errors.same("aes_xof", aes_xof_words(rk, n12, sid_t, ctr_t, n_words),
+                    aes_xof_ref(rk, n12, sid_t, ctr_t, n_words),
+                    f"aes_xof {name} at {lanes} lanes")
         x_plain = time_ms(lambda: aes_xof_ref(rk, n12, sid_t, ctr_t,
                                               n_words), 2)
         blocks = lanes * ((n_words + 3) // 4)
-        nbytes = 4 * lanes * n_words + 8 * lanes + rk.numel() + n12.numel()
-        b_ms, b_by = bound(nbytes, blocks * AES_OPS_PER_BLOCK)
+        nbytes = 4 * lanes * n_words + 16 * lanes + rk.numel() + n12.numel()
+        b_ms, b_by, b_lim = aes_bound(nbytes, blocks)
         per["aes_xof"][name] = {
-            "ms": x_ms, "plain_ms": x_plain, "bound_ms": b_ms,
-            "bound_by": b_by, "words_per_lane": n_words}
-        # mrmc on the window's states: layout transform, kernel alone
-        x = torch.as_tensor(rng.integers(0, p.mod.q, (lanes, p.n)),
-                            device=dev)
-        x_lm = MO.lane_major_states(p, x)
+            "plain_ms": x_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_limit": b_lim,
+            "words_per_lane": n_words}
+        # mrmc on the window's states: layout transform, plain version
+        x = torch.as_tensor(np.random.default_rng(5).integers(
+            0, p.mod.q, (lanes, p.n)), device=dev)
         lay_ms = time_ms(lambda: MO.lane_major_states(p, x), 20)
-        m_ms = time_ms(lambda: MO.launch_mrmc(p, x_lm), 20)
         errors.same("mrmc", MO.mrmc_kernel_apply(p, x), mrmc_ref(p, x),
                     f"mrmc {name} at {lanes} lanes")
         m_plain = time_ms(lambda: mrmc_ref(p, x), 5)
-        states = lanes * p.branches
         v = p.v
-        ops = states * (2 * v**3 * OPS["mac_small"]
-                        + 2 * v * v * OPS["reduce"])
-        b_ms, b_by = bound(2 * 4 * lanes * p.n, ops)
-        per["mrmc"][name] = {"ms": m_ms, "layout_ms": lay_ms,
-                             "plain_ms": m_plain, "bound_ms": b_ms,
-                             "bound_by": b_by}
-        del k, planes, x
+        m_ops = lanes * p.branches * (2 * v**3 * OPS["mac_small"]
+                                      + 2 * v * v * OPS["reduce"])
+        b_ms, b_by, b_lim = bound(2 * 4 * lanes * p.n, m_ops)
+        per["mrmc"][name] = {"layout_ms": lay_ms, "plain_ms": m_plain,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_limit": b_lim}
+        del k, want, x
         torch.cuda.empty_cache()
-    head = "pasta-128l"
-    for kname in ("keystream", "aes_xof", "mrmc"):
-        r = per[kname][head]
-        rows[kname] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                       "shape": f"{head}, {lanes} lanes",
-                       "per_preset": per[kname]}
+    rows = {kname: dict(per[kname][HEAD], shape=f"{HEAD}, {lanes} lanes",
+                        per_preset=per[kname])
+            for kname in per}
     # aes_ctr: the reference kernel's contract at one window of counters
-    nonce = rng.integers(0, 256, 16, dtype=np.uint8)
+    nonce = np.arange(16, dtype=np.uint8)
     rk1 = torch.as_tensor(aes128_key_expand(nonce), device=dev)
-    n12 = torch.as_tensor(nonce[:12], device=dev)
-    ctr = torch.as_tensor(rng.integers(0, 2**32, lanes), device=dev)
-    c_ms = time_ms(lambda: aes_ctr_kernel_apply(rk1, n12, ctr), 50)
-    c_plain = time_ms(lambda: aes_ctr_ref(rk1, n12, ctr), 5)
-    b_ms, b_by = bound(20 * lanes, lanes * AES_OPS_PER_BLOCK)
-    rows["aes_ctr"] = {"ms": c_ms, "plain_ms": c_plain, "bound_ms": b_ms,
-                       "bound_by": b_by, "shape": f"{lanes} counters"}
+    ctr = torch.as_tensor(np.arange(lanes), device=dev)
+    errors.same("aes_ctr", aes_ctr_kernel_apply(rk1, rk1[0, :12], ctr),
+                aes_ctr_ref(rk1, rk1[0, :12], ctr), "aes_ctr window")
+    c_plain = time_ms(lambda: aes_ctr_ref(rk1, rk1[0, :12], ctr), 5)
+    b_ms, b_by, b_lim = aes_bound(24 * lanes, lanes)
+    rows["aes_ctr"] = {"plain_ms": c_plain, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_limit": b_lim,
+                       "shape": f"{lanes} counters"}
     return rows
 
 
-def main() -> int:
+def baseline_times(tree: Path) -> dict:
+    """:func:`main_kernel_times` of a baseline tree, in a child process
+    that imports that tree's package (and builds its kernels there)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--baseline-child",
+         str(tree)], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"baseline timing failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def merge_times(this: list, base: list) -> dict:
+    """Mean of the runs per preset and key, for this tree and the
+    baseline (an empty list gives None)."""
+    def mean(runs, name, key):
+        vals = [r[name][key] for r in runs if key in r[name]]
+        return sum(vals) / len(vals) if vals else None
+
+    out = {}
+    for name, r in this[0].items():
+        out[name] = {}
+        for key in r:
+            out[name][key] = mean(this, name, key)
+            out[name]["prev_" + key] = mean(base, name, key) if base else None
+            out[name]["runs_" + key] = [x[name][key] for x in this]
+    return out
+
+
+TIMED = {"keystream": "keystream_ms", "aes_xof": "aes_xof_ms",
+         "mrmc": "mrmc_ms", "aes_ctr": "aes_ctr_ms"}
+# per-preset times reported beside ``ms``, by kernel
+EXTRA_TIMES = {"keystream": ("wrapper_ms", "prepare_ms", "host_ms"),
+               "aes_xof": ("host_ms",)}
+
+
+def kernel_entries(rows: dict, times: dict, launches: dict, errors: Errors,
+                   with_baseline: bool) -> list:
+    """The ``kernels`` JSON entries: each kernel's head-preset row from
+    :func:`time_kernels`, its times from :func:`merge_times`, the main
+    path's launch count and the largest error seen."""
+    head = times[HEAD]
+    kernels = []
+    for name in ("keystream", "aes_xof", "mrmc", "aes_ctr"):
+        r = rows[name]
+        key = TIMED[name]
+        for preset, d in r.get("per_preset", {}).items():
+            d["ms"] = times[preset][key]
+            d["prev_ms"] = times[preset]["prev_" + key]
+            for extra in EXTRA_TIMES.get(name, ()):
+                d[extra] = times[preset][f"{name}_{extra}"]
+                d["prev_" + extra] = times[preset][f"prev_{name}_{extra}"]
+        src, replaces = SOURCES[name]
+        on_path = name in MAIN_PATH
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "on_main_path": on_path,
+            "note": ("" if on_path else
+                     "off the main path: its device code runs inside the "
+                     "keystream kernel" if name == "mrmc" else
+                     "off the main path: the producer uses the aes_xof "
+                     "entry of the same source"),
+            "max_abs_err": errors.max[name], "ms": head[key],
+            "prev_ms": head["prev_" + key],
+            "prev_note": ("baseline tree timed in turns on this card"
+                          if with_baseline else
+                          "no baseline tree given: not measured"),
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "bound_limit": r["bound_limit"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "ok": errors.max[name] == 0, "shape": r["shape"],
+            **({"per_preset": r["per_preset"]} if "per_preset" in r else {}),
+        })
+    return kernels
+
+
+def baseline_child(tree: Path) -> int:
+    """Child mode: time a baseline tree's kernels (its own package, built
+    into its own build directory) and print them as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(tree / "src"))
+    dev = torch.device("cuda", 0)
+    print(json.dumps(main_kernel_times(dev)))
+    return 0
+
+
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="an unpacked earlier tree of this repository to "
+                         "time beside this one")
+    ap.add_argument("--baseline-child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.baseline_child is not None:
+        return baseline_child(args.baseline_child)
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
+    baseline = args.baseline
     phases = {}
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -559,7 +787,7 @@ def main() -> int:
     log(f"[2] build: {build.build_seconds:.1f} s nvcc+link "
         f"({build.library_path().name})")
     for line in build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())
 
     errors = Errors()
@@ -589,34 +817,25 @@ def main() -> int:
     phases["serving_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    log("[6] kernel times at the serving shapes")
+    log("[6] kernel times at the serving shapes"
+        + (f" (baseline tree {baseline}, in turns)" if baseline else ""))
+    base_runs, this_runs = [], []
+    if baseline:
+        base_runs.append(baseline_times(baseline))
+    this_runs.append(main_kernel_times(dev))
     rows = time_kernels(dev, errors)
+    this_runs.append(main_kernel_times(dev))
+    if baseline:
+        base_runs.append(baseline_times(baseline))
+    times = merge_times(this_runs, base_runs)
+    log(json.dumps({"times": times}))
     phases["timing_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({"phases": phases}))
 
-    kernels = []
-    for name in ("keystream", "aes_xof", "mrmc", "aes_ctr"):
-        r = rows[name]
-        src, replaces = SOURCES[name]
-        on_path = name in MAIN_PATH
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "on_main_path": on_path,
-            "note": ("" if on_path else
-                     "off the main path: its device code runs inside the "
-                     "keystream kernel" if name == "mrmc" else
-                     "off the main path: the producer uses the aes_xof "
-                     "entry of the same source"),
-            "max_abs_err": errors.max[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "library_note": "no single PyTorch call computes this function",
-            "ok": errors.max[name] == 0, "shape": r["shape"],
-            **({"per_preset": r["per_preset"]} if "per_preset" in r else {}),
-        })
+    kernels = kernel_entries(rows, times, launches, errors,
+                             baseline is not None)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -626,4 +845,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,7 +14,8 @@
 // byte, far below the card's ops-per-byte balance.  The design keeps the
 // state in registers between the two passes, so the device memory traffic
 // is the minimum the function needs.  The body is `repro::mrmc_static`
-// (mrmc.cuh), which the fused keystream kernel also runs.
+// (mrmc.cuh), built on `repro::mix_dot`, which the fused keystream kernel
+// runs with one thread per word (keystream.cu).
 
 #include <cuda_runtime.h>
 
@@ -31,8 +32,7 @@ __global__ void mrmc_kernel(const int32_t* __restrict__ x,
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cols) return;
   repro::mrmc_static<V>(reinterpret_cast<const uint32_t*>(x) + c, cols,
-                        reinterpret_cast<uint32_t*>(y) + c, cols,
-                        /*transpose_out=*/false, /*lazy=*/false, m);
+                        reinterpret_cast<uint32_t*>(y) + c, cols, m);
 }
 
 template <int V>

@@ -1,7 +1,9 @@
 // Device functions shared by the MRMC kernel (mrmc.cu) and the fused
-// keystream kernel (keystream.cu): Z_q arithmetic, the static circulant
-// M_v·X·M_vᵀ, and the dense per-lane t×t matvec of PASTA's streamed
-// affine layers.
+// keystream kernel (keystream.cu): Z_q arithmetic, the circulant's
+// coefficients, the transpose permutation and `mix_dot`, the one body of
+// the static M·X·Mᵀ.  The MRMC kernel (`mrmc_static`) runs every entry of a
+// state in one thread; the keystream kernel gives each word of the state
+// to its own thread of the lane's group.
 //
 // Arithmetic.  The TPU datapath (repro/crypto/modmath.py) splits operands
 // into 14-bit limbs because the TPU has no 64-bit integer multiply, and the
@@ -59,88 +61,42 @@ __device__ __forceinline__ int tperm(int k) {
   return (k % V) * V + k / V;
 }
 
-// y = M·X·Mᵀ for one (V, V) state stored row-major at x (word stride xs),
-// or its transpose when transpose_out is set (the schedule's orientation
-// flip: the compute is the same, only where each output lands changes).
-// The state is loaded into registers first, so y may alias x.
-//
-// lazy: each row sums its raw c·x terms in uint64 and reduces once (the
-// plan's lazy-accumulate); otherwise every term is reduced before it is
-// added, as the eager datapath does.  Inputs may be unreduced (< 2q after a
-// deferred ARK); the output is canonical.
+// Row i of M_v times the V words x[0], x[s], ..., x[(V-1)·s]: one entry of
+// either half of M·X·Mᵀ.  The column mix is A[r][c] = mix_dot(r, X + c, V)
+// and the row mix Y[r][c] = mix_dot(c, A + r·V, 1) (row-major (V, V)
+// states).  lazy: the row sums its raw c·x terms in uint64 and reduces once
+// (the plan's lazy-accumulate); otherwise every term is reduced before it
+// is added, as the eager datapath does.  Inputs may be unreduced (< 2q
+// after a deferred ARK); the output is canonical.
+template <int V>
+__device__ __forceinline__ uint32_t mix_dot(int i, const uint32_t* x, int s,
+                                            bool lazy, ModQ m) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const uint64_t t = (uint64_t)mix_coef<V>(i, j) * x[j * s];
+    acc += lazy ? t : (uint64_t)mod_reduce(t, m);
+  }
+  return mod_reduce(acc, m);
+}
+
+// y = M·X·Mᵀ (eager) for one (V, V) state stored row-major at x (word
+// stride xs), in one thread.  The state is loaded into registers first, so
+// y may alias x.
 template <int V>
 __device__ __forceinline__ void mrmc_static(const uint32_t* x, int xs,
-                                            uint32_t* y, int ys,
-                                            bool transpose_out, bool lazy,
-                                            ModQ m) {
+                                            uint32_t* y, int ys, ModQ m) {
   uint32_t xr[V * V];
 #pragma unroll
   for (int k = 0; k < V * V; ++k) xr[k] = x[k * xs];
 #pragma unroll
   for (int r = 0; r < V; ++r) {
-    // MixColumns, row r: a[c] = sum_j M[r][j] · X[j][c]
-    uint32_t a[V];
+    uint32_t a[V];  // row r of the column mix
 #pragma unroll
-    for (int c = 0; c < V; ++c) {
-      uint64_t acc = 0;
+    for (int c = 0; c < V; ++c) a[c] = mix_dot<V>(r, xr + c, V, false, m);
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        uint64_t term = (uint64_t)mix_coef<V>(r, j) * xr[j * V + c];
-        acc += lazy ? term : (uint64_t)mod_reduce(term, m);
-      }
-      a[c] = mod_reduce(acc, m);
-    }
-    // MixRows: out[r][c] = sum_j M[c][j] · a[j]
-#pragma unroll
-    for (int c = 0; c < V; ++c) {
-      uint64_t acc = 0;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        uint64_t term = (uint64_t)mix_coef<V>(c, j) * a[j];
-        acc += lazy ? term : (uint64_t)mod_reduce(term, m);
-      }
-      const int idx = transpose_out ? c * V + r : r * V + c;
-      y[idx * ys] = mod_reduce(acc, m);
-    }
-  }
-}
-
-// Dense per-lane matvec for one branch, in stored-state order:
-//   y_s[i] = sum_j M[p_out(i), p_in(j)] · x_s[j]  mod q
-// where M is the branch's logical row-major t×t matrix, read from the
-// lane-major matrix plane at word rows base .. base + t² (row stride
-// `stride` words, already offset to this lane), and p_in/p_out are the
-// transpose permutation when the op's input/output orientation is
-// transposed.  This is what repro's mat_storage_perm pre-permutes on the
-// host; the permutation is uniform across lanes, so reading through it
-// keeps every load coalesced.
-//
-// lazy: raw 56-bit products accumulate in uint64 (t·q² < 2^62 for
-// t = 64); otherwise each product is reduced first (the eager datapath).
-// The state is loaded into registers first, so y may alias x.
-template <int V>
-__device__ __forceinline__ void dense_matvec(const int32_t* __restrict__ mat,
-                                             size_t stride, int base,
-                                             bool t_in, bool t_out,
-                                             const uint32_t* x, int xs,
-                                             uint32_t* y, int ys, bool lazy,
-                                             ModQ m) {
-  constexpr int T = V * V;
-  uint32_t xr[T];
-#pragma unroll
-  for (int k = 0; k < T; ++k) xr[k] = x[k * xs];
-  for (int i = 0; i < T; ++i) {
-    const int pi = t_out ? tperm<V>(i) : i;
-    const int32_t* row = mat + (size_t)(base + pi * T) * stride;
-    uint64_t acc = 0;
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      const int pj = t_in ? tperm<V>(j) : j;
-      const uint64_t prod =
-          (uint64_t)(uint32_t)__ldg(row + (size_t)pj * stride) * xr[j];
-      acc += lazy ? prod : (uint64_t)mod_reduce(prod, m);
-    }
-    y[i * ys] = mod_reduce(acc, m);
+    for (int c = 0; c < V; ++c)
+      y[(r * V + c) * ys] = mix_dot<V>(c, a, 1, false, m);
   }
 }
 

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "repro_aes_ctr": [_P, _P, _P, _P, _P, _I, _P],
     "repro_aes_xof": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "repro_mrmc": [_I, _P, _P, _I, _U32, _U64, _P],
-    "repro_keystream": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U32,
-                        _U64, _P],
+    "repro_keystream": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I,
+                        _I, _U32, _U64, _P],
 }
 
 _lib = None
@@ -166,14 +166,6 @@ def require_cuda(t, name: str, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-
-
-def u32_bits(x):
-    """int64 values in [0, 2^32) -> int32 tensor holding the same bits."""
-    import torch
-
-    x = x.to(torch.int64) & 0xFFFFFFFF
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def from_u32_bits(x):

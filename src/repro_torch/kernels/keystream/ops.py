@@ -6,11 +6,10 @@ every preset, variant and reduction mode.  :func:`keystream_kernel_apply`
 has the reference's signature; CPU tensors take the plain version
 (`kernels/keystream/ref.py`), CUDA tensors launch the kernel or raise.
 
-Layout: the producer emits row-major (lanes, words) planes; the kernel
-reads lane-major (words, lanes) planes in the producer's logical word
-order (it applies the storage-order permutations to the word index
-itself), so each plane costs the wrapper one copy: the transpose and the
-int64 -> int32 narrowing in a single ``copy_``.
+Layout: the kernel reads the producer's row-major (lanes, words) int64
+planes where they lie and writes the (lanes, l) int64 keystream the
+engine returns, so the wrapper makes no copy on either side
+(:func:`kernel_operands`).
 """
 
 from __future__ import annotations
@@ -91,6 +90,11 @@ def op_table(params: CipherParams, variant: str = "normal",
     return rows
 
 
+#: (V, branches, threads per lane, lanes per thread block) of each state
+#: size's kernel instantiation: the same numbers as csrc/keystream.cu Shape.
+KERNEL_SHAPE = {16: (4, 1, 16, 8), 32: (4, 2, 16, 8), 36: (6, 1, 64, 2),
+                64: (8, 1, 64, 2), 128: (8, 2, 64, 1)}
+
 _DEVICE_TABLES: dict = {}
 
 
@@ -102,72 +106,72 @@ def _device_table(params, variant, reduction, device):
     return _DEVICE_TABLES[k]
 
 
-def _lane_major(x, rows: int, lanes: int, name: str):
-    """(lanes, rows) int tensor -> contiguous (rows, lanes) int32: one
-    copy doing the transpose and the narrowing together."""
-    if tuple(x.shape) != (lanes, rows):
-        raise ValueError(f"{name} shape {tuple(x.shape)} != {(lanes, rows)}")
-    out = torch.empty((rows, lanes), dtype=torch.int32, device=x.device)
-    out.copy_(x.T)
-    return out
+def _plane(x, shape, name: str):
+    """A (lanes, words) plane as the kernel reads it: contiguous int64 —
+    the producer's own tensor, not a copy, when it already is one."""
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)} != {tuple(shape)}")
+    return x.to(torch.int64).contiguous()
 
 
-def lane_major_inputs(params: CipherParams, key, rc, noise=None, *,
-                      variant: str = "normal", mats=None) -> dict:
-    """The kernel's operands from row-major producer planes: key (n,),
-    rc (n_round_constants, lanes), noise (l, lanes) or None, mats
-    (n_matrix_constants, lanes) or None — all contiguous int32 on rc's
-    device, one copy per plane."""
+def kernel_operands(params: CipherParams, key, rc, noise=None, *,
+                    variant: str = "normal", mats=None) -> dict:
+    """The kernel's operands: key (n,), rc (lanes, n_round_constants),
+    noise (lanes, l) or None, mats (lanes, n_matrix_constants) or None —
+    the producer's row-major int64 planes themselves (same storage; a
+    plane of another dtype or a strided view is converted)."""
     sched = S.build_schedule(params, variant)
     lanes = rc.shape[0]
     n_mat = sched.n_matrix_constants
-    planes = {"rc": _lane_major(rc, sched.n_round_constants, lanes, "rc"),
-              "noise": None, "mats": None}
+    ops = {"rc": _plane(rc, (lanes, sched.n_round_constants), "rc"),
+           "noise": None, "mats": None}
     if noise is not None and params.n_noise:
-        planes["noise"] = _lane_major(noise, params.l, lanes, "noise")
+        ops["noise"] = _plane(noise, (lanes, params.l), "noise")
     if n_mat:
         if mats is None:
             raise ValueError(f"schedule {sched.name} streams its affine "
                              "matrices: pass the mats plane")
-        planes["mats"] = _lane_major(mats, n_mat, lanes, "mats")
-    key_d = torch.as_tensor(key).to(device=rc.device, dtype=torch.int32) \
+        ops["mats"] = _plane(mats, (lanes, n_mat), "mats")
+    key_d = torch.as_tensor(key).to(device=rc.device, dtype=torch.int64) \
         .contiguous()
     if key_d.shape != (params.n,):
         raise ValueError(f"key shape {tuple(key_d.shape)} != ({params.n},)")
-    planes["key"] = key_d
-    return planes
+    ops["key"] = key_d
+    return ops
 
 
-def launch_keystream(params: CipherParams, planes: dict, *,
+def launch_keystream(params: CipherParams, ops: dict, *,
                      variant: str = "normal",
                      reduction: str = DEFAULT_REDUCTION):
-    """Launch the kernel on :func:`lane_major_inputs` operands; returns the
-    lane-major (l, lanes) int32 keystream."""
+    """Launch the kernel on :func:`kernel_operands`; returns the
+    row-major (lanes, l) int64 keystream."""
     sched = S.build_schedule(params, variant)
-    rc_p = planes["rc"]
+    rc_p = ops["rc"]
     dev = rc_p.device
-    lanes = rc_p.shape[1]
+    lanes = rc_p.shape[0]
     table = _device_table(params, variant, reduction, dev)
-    noise_p, mats_p = planes["noise"], planes["mats"]
-    build.require_cuda(rc_p, "rc", torch.int32,
-                       (sched.n_round_constants, lanes))
-    build.require_cuda(planes["key"], "key", torch.int32, (params.n,))
+    noise_p, mats_p = ops["noise"], ops["mats"]
+    n_mat = sched.n_matrix_constants
+    build.require_cuda(rc_p, "rc", torch.int64,
+                       (lanes, sched.n_round_constants))
+    build.require_cuda(ops["key"], "key", torch.int64, (params.n,))
     if noise_p is not None:
-        build.require_cuda(noise_p, "noise", torch.int32, (params.l, lanes))
-    if sched.n_matrix_constants:
+        build.require_cuda(noise_p, "noise", torch.int64, (lanes, params.l))
+    if n_mat:
         if mats_p is None:
             raise ValueError(f"schedule {sched.name} needs the mats plane")
-        build.require_cuda(mats_p, "mats", torch.int32,
-                           (sched.n_matrix_constants, lanes))
-    out = torch.empty((params.l, lanes), dtype=torch.int32, device=dev)
+        build.require_cuda(mats_p, "mats", torch.int64, (lanes, n_mat))
+        if mats_p.data_ptr() % 16:
+            raise ValueError("mats must be 16-byte aligned (cp.async)")
+    out = torch.empty((lanes, params.l), dtype=torch.int64, device=dev)
     q = params.mod.q
     lib = build.library()
     err = lib.repro_keystream(
         params.n, table.data_ptr(), table.shape[0],
-        1 if sched.init == "key" else 0, planes["key"].data_ptr(),
-        rc_p.data_ptr(),
+        1 if sched.init == "key" else 0, ops["key"].data_ptr(),
+        rc_p.data_ptr(), sched.n_round_constants,
         noise_p.data_ptr() if noise_p is not None else None,
-        mats_p.data_ptr() if mats_p is not None else None,
+        mats_p.data_ptr() if mats_p is not None else None, n_mat,
         out.data_ptr(), params.l, lanes, q, (1 << 64) // q,
         build.stream_handle(dev))
     build.check(err, "keystream kernel")
@@ -185,11 +189,8 @@ def keystream_kernel_apply(params: CipherParams, key, rc, noise=None, *,
     if not rc.is_cuda:
         return keystream_ref(params, key, rc, noise, variant=variant,
                              mats=mats, reduction=reduction)
-    planes = lane_major_inputs(params, key, rc, noise, variant=variant,
-                               mats=mats)
-    out = launch_keystream(params, planes, variant=variant,
-                           reduction=reduction)
-    return out.T.to(torch.int64).contiguous()
+    ops = kernel_operands(params, key, rc, noise, variant=variant, mats=mats)
+    return launch_keystream(params, ops, variant=variant, reduction=reduction)
 
 
 def work_per_lane(params: CipherParams, variant: str = "normal") -> dict:

@@ -28,13 +28,19 @@ from repro_torch.kernels.aes.ops import (  # noqa: E402
     aes_xof_words,
 )
 from repro_torch.kernels.aes.ref import aes_ctr_ref, aes_xof_ref  # noqa: E402
-from repro_torch.kernels.keystream.ops import keystream_kernel_apply  # noqa: E402
+from repro_torch.kernels.keystream.ops import (  # noqa: E402
+    kernel_operands,
+    keystream_kernel_apply,
+    launch_keystream,
+)
 from repro_torch.kernels.keystream.ref import keystream_ref  # noqa: E402
 from repro_torch.kernels.mrmc.ops import mrmc_kernel_apply  # noqa: E402
 from repro_torch.kernels.mrmc.ref import mrmc_ref  # noqa: E402
 from repro_torch.serve.hhe_loop import HHERequest, HHEServer  # noqa: E402
 
 PRESETS = sorted(REGISTRY)
+# lane counts that cut a lane group or a thread block of the kernels
+LANE_COUNTS = (1, 31, 1000, 4096)
 
 # SHA-256 of the little-endian keystream words of make_cipher(name,
 # seed=123) over block counters 0..3 — the reference's golden digests.
@@ -104,15 +110,18 @@ def test_aes_ctr_kernel_matches_plain(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_words", [1, 7, 112, 1000])
 def test_aes_xof_kernel_matches_plain(cuda, n_words):
+    """Several sessions, at lane counts that cut a thread block's lane
+    group (and a lane that is shorter than one thread block)."""
     rng = np.random.default_rng(n_words)
-    nonces = rng.integers(0, 256, (3, 16), dtype=np.uint8)
+    nonces = rng.integers(0, 256, (5, 16), dtype=np.uint8)
     rk = torch.as_tensor(np.stack([aes128_key_expand(n) for n in nonces]),
                          device=cuda)
     n12 = torch.as_tensor(nonces[:, :12].copy(), device=cuda)
-    sid = torch.as_tensor(rng.integers(0, 3, 777), device=cuda)
-    ctr = torch.as_tensor(rng.integers(0, 2**16, 777), device=cuda)
-    _exact(aes_xof_words(rk, n12, sid, ctr, n_words),
-           aes_xof_ref(rk, n12, sid, ctr, n_words))
+    for lanes in LANE_COUNTS:
+        sid = torch.as_tensor(rng.integers(0, 5, lanes), device=cuda)
+        ctr = torch.as_tensor(rng.integers(0, 2**16, lanes), device=cuda)
+        _exact(aes_xof_words(rk, n12, sid, ctr, n_words),
+               aes_xof_ref(rk, n12, sid, ctr, n_words))
 
 
 @pytest.mark.gpu
@@ -136,14 +145,36 @@ CASES = [(name, variant, reduction, with_noise)
 @pytest.mark.parametrize("name,variant,reduction,with_noise", CASES)
 def test_keystream_kernel_matches_plain(cuda, name, variant, reduction,
                                         with_noise):
-    p, key, rc, noise, mats = _inputs(name, 1000, 3, cuda)
-    noise = noise if with_noise else None
-    before = build.LAUNCHES["keystream"]
-    got = keystream_kernel_apply(p, key, rc, noise, variant=variant,
-                                 mats=mats, reduction=reduction)
-    assert build.LAUNCHES["keystream"] == before + 1
-    _exact(got, keystream_ref(p, key, rc, noise, variant=variant, mats=mats,
-                              reduction=reduction))
+    """At lane counts that cut a lane group and a thread block."""
+    for lanes in LANE_COUNTS:
+        p, key, rc, noise, mats = _inputs(name, lanes, 3, cuda)
+        noise = noise if with_noise else None
+        before = build.LAUNCHES["keystream"]
+        got = keystream_kernel_apply(p, key, rc, noise, variant=variant,
+                                     mats=mats, reduction=reduction)
+        assert build.LAUNCHES["keystream"] == before + 1
+        _exact(got, keystream_ref(p, key, rc, noise, variant=variant,
+                                  mats=mats, reduction=reduction))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS)
+def test_keystream_kernel_reads_planes_in_place(cuda, name):
+    """The kernel's operands are the producer's planes on the card (same
+    storage), and it returns the engine's row-major int64 keystream."""
+    cb = CipherBatch(name, seed=4, device=cuda)
+    cb.add_sessions(3)
+    k = cb.round_constant_stream(np.array([0, 1, 2, 1]), np.arange(4))
+    ops = kernel_operands(cb.params, cb.key, k["rc"], k["noise"],
+                          mats=k["mats"])
+    for plane in ("rc", "noise", "mats"):
+        if k[plane] is not None:
+            assert ops[plane].data_ptr() == k[plane].data_ptr(), plane
+    z = launch_keystream(cb.params, ops)
+    assert z.dtype == torch.int64 and z.shape == (4, cb.params.l)
+    assert z.is_contiguous()
+    _exact(z, keystream_ref(cb.params, cb.key, k["rc"], k["noise"],
+                            mats=k["mats"]))
 
 
 @pytest.mark.gpu

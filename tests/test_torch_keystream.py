@@ -108,16 +108,34 @@ def test_mrmc_plain_version_matches_jax(name):
 # The CUDA kernel's op-table interpreter, modelled in numpy
 # ---------------------------------------------------------------------------
 def _emulate_kernel(p, key, rc, noise, mats, table):
-    """What csrc/keystream.cu computes, step for step: lane-major planes in
-    logical word order, storage-order permutations applied to the word
-    index, canonical reduction at each op output (uint64 arithmetic is
-    exact here as Python ints in object arrays)."""
-    q, V, B = p.mod.q, p.v, p.branches
-    T, N = V * V, p.n
-    lanes = rc.shape[0]
-    rcT = rc.T.astype(object)
-    matT = None if mats is None else mats.T.astype(object)
+    """What csrc/keystream.cu computes, thread for thread.
+
+    Lanes sit in thread blocks of L lane groups of G threads (the ragged
+    tail reads the last real lane and writes nothing); thread g owns word
+    g of every branch.  Planes are read row-major at lane·width + word,
+    with the storage-order permutations applied to the word index.  Words
+    cross threads only through the per-lane shared arrays ``xs`` / ``as``.
+    Each branch matrix is staged into a two-slot ring in 16-byte chunks
+    (chunk c by thread c % G), and thread g walks its dense row from
+    column g, multiplying column c by the input word stored at logical
+    position c.  Values are vectors over the lane slots of all blocks;
+    uint64 arithmetic is exact here as Python ints in object arrays.
+    """
+    q = p.mod.q
+    V, B, G, L = KO.KERNEL_SHAPE[p.n]
+    T, N, l = V * V, p.n, p.l
+    TT = T * T
+    lanes, n_rc = rc.shape
+    slots = -(-lanes // L) * L
+    lane = np.arange(slots)
+    live = lane < lanes
+    ld = np.where(live, lane, lanes - 1)
+    rc_flat = rc.reshape(-1).astype(object)
+    mat_flat = None if mats is None else mats.reshape(-1).astype(object)
+    n_mat = 0 if mats is None else mats.shape[1]
+    noise_flat = None if noise is None else noise.reshape(-1).astype(np.int64)
     key = key.astype(object)
+    threads = range(min(G, T))           # threads g >= T own no word
 
     def tperm(k):
         return (k % V) * V + k // V
@@ -125,73 +143,127 @@ def _emulate_kernel(p, key, rc, noise, mats, table):
     def full(j):
         return (j // T) * T + tperm(j % T)
 
-    sched_init_key = S.build_schedule(p).init == "key"
-    x = [key[w] * np.ones(lanes, object) if sched_init_key
-         else np.full(lanes, w + 1, object) for w in range(N)]
-    width = N
-    M = p.mix_matrix()
+    def cond_sub(v):                      # v < 2q -> [0, q)
+        return np.where(v >= q, v - q, v)
+
+    def coef(i, j):
+        d = (j - i + V) % V
+        return 2 if d == 0 else (3 if d == 1 else 1)
+
+    ring = [None, None]
+    n_mats = n_mat // TT if mats is not None else 0
+
+    def stage(k):
+        if k < n_mats:
+            dst = np.zeros((slots, TT), object)
+            for g in range(G):
+                for c in range(g, TT // 2, G):
+                    for e in (2 * c, 2 * c + 1):
+                        dst[:, e] = mat_flat[ld * n_mat + k * TT + e]
+            ring[k & 1] = dst
+
+    stage(0)
+    stage(1)
+    init_key = S.build_schedule(p).init == "key"
+    x = {(g, b): (np.full(slots, key[b * T + g], object) if init_key
+                  else np.full(slots, b * T + g + 1, object))
+         for g in threads for b in range(B)}
+    width, k_mat = N, 0
     for rec in table:
         kind, f = int(rec[KO.R_KIND]), int(rec[KO.R_FLAGS])
         t_in, t_out = bool(f & KO.F_T_IN), bool(f & KO.F_T_OUT)
         if kind == KO.OP_ARK:
-            a = int(rec[KO.R_RC_A])
-            for j in range(int(rec[KO.R_LEN])):
-                s = full(j) if t_in else j
-                v = x[j] + (key[s] * rcT[a + s]) % q
-                x[j] = v if f & KO.F_DEFER_OUT else v % q
+            a, ln = int(rec[KO.R_RC_A]), int(rec[KO.R_LEN])
+            for (g, b), v in x.items():
+                j = b * T + g
+                if j < ln:
+                    s = full(j) if t_in else j
+                    v = v + key[s] * rc_flat[ld * n_rc + a + s] % q
+                    x[g, b] = v if f & KO.F_DEFER_OUT else cond_sub(v)
         elif kind == KO.OP_MRMC:
-            for b in range(B):
-                xb = [x[b * T + k] for k in range(T)]
-                if f & KO.F_STREAM:
-                    base = int(rec[KO.R_MAT_A]) + b * T * T
-                    for i in range(T):
-                        pi = tperm(i) if t_out else i
+            if f & KO.F_STREAM:
+                # the kernel stages branch matrices in plane order
+                assert int(rec[KO.R_MAT_A]) == k_mat * TT
+                lazy = bool(f & KO.F_LAZY_DENSE)
+                for b in range(B):
+                    xs = {(tperm(g) if t_in else g): x[g, b] for g in threads}
+                    mat = ring[k_mat & 1]
+                    for g in threads:
+                        row = tperm(g) if t_out else g
                         acc = 0
-                        for j in range(T):
-                            pj = tperm(j) if t_in else j
-                            acc = acc + matT[base + pi * T + pj] * xb[j]
-                        x[b * T + i] = acc % q
-                else:
-                    for r in range(V):
-                        a_row = [sum(int(M[r, j]) * xb[j * V + c]
-                                     for j in range(V)) % q
-                                 for c in range(V)]
-                        for c in range(V):
-                            out = sum(int(M[c, j]) * a_row[j]
-                                      for j in range(V)) % q
-                            idx = c * V + r if t_in != t_out else r * V + c
-                            x[b * T + idx] = out
+                        for c in list(range(g, T)) + list(range(g)):
+                            prod = (mat[:, row * T + c] & 0xFFFFFFFF) * xs[c]
+                            acc = acc + (prod if lazy else prod % q)
+                        x[g, b] = acc % q
+                    stage(k_mat + 2)
+                    k_mat += 1
+            else:
+                lazy = bool(f & KO.F_LAZY_ACC)
+                flip = t_in != t_out
+                xs = {b * T + g: x[g, b] for g in threads for b in range(B)}
+                as_ = {}
+                for g in threads:
+                    rg, cg = g // V, g % V
+                    for b in range(B):
+                        acc = 0
+                        for j in range(V):
+                            t = coef(rg, j) * xs[b * T + j * V + cg]
+                            acc = acc + (t if lazy else t % q)
+                        as_[b * T + g] = acc % q
+                for g in threads:
+                    rg, cg = g // V, g % V
+                    R, C = (cg, rg) if flip else (rg, cg)
+                    for b in range(B):
+                        acc = 0
+                        for j in range(V):
+                            t = coef(C, j) * as_[b * T + R * V + j]
+                            acc = acc + (t if lazy else t % q)
+                        x[g, b] = acc % q
             fold = bool(f & KO.F_FOLD_MIX)
             if f & KO.F_HAS_RC:
                 a = int(rec[KO.R_RC_A])
-                for j in range(N):
+                for (g, b), v in x.items():
+                    j = b * T + g
                     s = full(j) if t_out else j
-                    v = x[j] + rcT[a + s]
-                    x[j] = v if fold else v % q
+                    v = v + rc_flat[ld * n_rc + a + s]
+                    x[g, b] = v if fold else cond_sub(v)
             if f & KO.F_MIX:
-                for j in range(T):
-                    yl, yr = x[j], x[T + j]
-                    x[j], x[T + j] = (2 * yl + yr) % q, (yl + 2 * yr) % q
+                for g in threads:
+                    yl, yr = x[g, 0], x[g, 1]
+                    if fold:
+                        x[g, 0], x[g, 1] = (2 * yl + yr) % q, (yl + 2 * yr) % q
+                    else:
+                        s = cond_sub(yl + yr)
+                        x[g, 0], x[g, 1] = cond_sub(s + yl), cond_sub(s + yr)
         elif kind == KO.OP_NONLINEAR:
             if not f & KO.F_FEISTEL:
-                for j in range(width):
-                    x[j] = (x[j] * x[j] % q) * x[j] % q
+                for (g, b), v in x.items():
+                    if b * T + g < width:
+                        x[g, b] = (v * v % q) * v % q
             else:
-                for b in range(B):
-                    xb = [x[b * T + k] for k in range(T)]
-                    for s in range(T):
-                        lt = tperm(s) if t_in else s
-                        if lt == 0:
-                            continue
-                        ps = tperm(lt - 1) if t_in else lt - 1
-                        x[b * T + s] = (xb[s] + xb[ps] * xb[ps]) % q
+                xs = {b * T + g: x[g, b] for g in threads for b in range(B)}
+                for g in threads:
+                    lt = tperm(g)
+                    if (lt if t_in else g) == 0:
+                        continue
+                    pred = tperm(lt - 1) if t_in else g - 1
+                    for b in range(B):
+                        pv = xs[b * T + pred]
+                        x[g, b] = cond_sub(x[g, b] + pv * pv % q)
         elif kind == KO.OP_TRUNCATE:
             width = int(rec[KO.R_KEEP])
         elif kind == KO.OP_AGN and noise is not None:
-            for j in range(width):
-                e = noise[:, j].astype(np.int64)
-                x[j] = (x[j] + np.where(e < 0, e + q, e).astype(object)) % q
-    return np.stack([np.asarray(x[j], np.int64) for j in range(p.l)], axis=1)
+            for (g, b), v in x.items():
+                j = b * T + g
+                if j < width:
+                    e = noise_flat[ld * l + j]
+                    x[g, b] = cond_sub(v + np.where(e < 0, e + q, e)
+                                       .astype(object))
+    out = np.zeros((lanes, l), np.int64)
+    for (g, b), v in x.items():
+        if b * T + g < l:
+            out[lane[live], b * T + g] = np.asarray(v[live], np.int64)
+    return out
 
 
 EMU_CASES = [(name, variant, reduction)
@@ -203,9 +275,10 @@ EMU_CASES = [(name, variant, reduction)
 @pytest.mark.parametrize("name,variant,reduction", EMU_CASES)
 def test_op_table_interpreter_matches_jax(name, variant, reduction):
     """The op table plus the index arithmetic the CUDA kernel applies to
-    it (in-kernel storage-order permutations, transposed Feistel
-    predecessor, key-column initial state, AGN fold) reproduces the JAX
-    keystream on a ragged lane count."""
+    it (row-major planes, one word of each branch per thread, in-kernel
+    storage-order permutations, rotated dense rows over the staged matrix
+    ring, transposed Feistel predecessor, key-column initial state, AGN
+    fold) reproduces the JAX keystream on a ragged lane count."""
     p, key, rc, noise, mats = _inputs(name)
     table = op_table(p, variant, reduction)
     got = _emulate_kernel(p, key, rc, noise, mats, table)
@@ -247,3 +320,24 @@ def test_wrappers_take_plain_path_only_on_cpu_tensors():
     keystream_kernel_apply(p, _t(key), _t(rc))
     mrmc_kernel_apply(p, _t(rc[:, : p.n]))
     assert all(v == 0 for v in build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_kernel_operands_are_the_producers_planes(name):
+    """The wrapper hands the kernel the producer's planes as they lie:
+    the same storage (no transposing or narrowing copy), row-major
+    (lanes, words) int64, and the engine's key tensor."""
+    from repro_torch.core.cipher import CipherBatch
+
+    cb = CipherBatch(name, seed=1, device="cpu")
+    cb.add_sessions(2)
+    k = cb.round_constant_stream(np.array([0, 1, 0]), np.array([3, 4, 5]))
+    p = cb.params
+    ops = KO.kernel_operands(p, cb.key, k["rc"], k["noise"], mats=k["mats"])
+    for plane in ("rc", "noise", "mats"):
+        if k[plane] is None:
+            assert ops[plane] is None
+            continue
+        assert ops[plane].data_ptr() == k[plane].data_ptr(), plane
+        assert ops[plane].dtype == torch.int64 and ops[plane].shape[0] == 3
+    assert ops["key"].data_ptr() == cb.key.data_ptr()

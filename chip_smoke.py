@@ -27,7 +27,20 @@ Phases (any failure exits non-zero; nothing is caught):
    earlier commit of this repository, its kernels are timed on the same
    inputs in a child process, in turns with this tree's (baseline, this,
    this, baseline), and each kernel entry carries the baseline's time as
-   ``prev_ms``.
+   ``prev_ms``;
+7. the main path over the wire: one ``ServePlane`` per preset (hera-128a,
+   pasta-128l with matrix_depth 2) at window 4096 on 127.0.0.1, four
+   tenants with two sessions each driving the phase-5 request mix over
+   their own JSON ``ServeClient`` connections (one child process each,
+   started with ``--tcp-client``), one live rotation per tenant, a fifth
+   tenant's hello evicting an idle one (whose farm must be freed), launch
+   counts reset just before and read just after, every round trip exact;
+   and the farm driven from a worker thread at depth 1 and 2, its
+   producer/consumer overlap measured with CUDA events;
+7b. the threefry producer (hera-128a, pasta-128l on threefry) against the
+   JAX reference's digests, the ``cuda`` engine on its constants against
+   the ``ref`` engine, both producers timed per window, and the ``cached``
+   producer's hit and rotation miss.
 
 The last three lines of standard output are the kernel JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -35,10 +48,12 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -93,6 +108,46 @@ GOLDEN = {
     ("pasta-128s", "plain"): "021dbc05a9e7b35b06bf077da4d1b657558fdb1156173d6c1ccb69e5e58ff586",
     ("pasta-128l", "plain"): "5d8b9aec6b5d50f63d64477d3ff1e45078047c98ed92c4473fc4d0dabcf92331",
 }
+
+# Phase 7b: threefry presets (``dataclasses.replace(p, xof="threefry")``)
+# and SHA-256 digests (:func:`digest`) of the JAX reference's threefry
+# words, constants planes and ``ref``-engine keystream on the first
+# DIGEST_LANES lanes of :func:`threefry_lanes`; tests/test_torch_threefry.py
+# recomputes them from the reference.
+THREEFRY_PRESETS = ("hera-128a", "pasta-128l")
+DIGEST_LANES = 64
+THREEFRY_GOLDEN = {
+    "hera-128a": {
+        "words": "6db92e2dbdeef570173027ae916b70e059a845950da6de331c3cc2c745ef3653",
+        "planes": "f28709466f763edd5eec47a5252c309cb59324e06b80e16439f16da717f3d19c",
+        "keystream": "129b1ea93377e9e2e47e096957925b6ab60f5aa4b656d08f0847a1d459b65374",
+    },
+    "pasta-128l": {
+        "words": "8c3fec90837ec81ab24cc839f6b7be6399541ef8ad515746709f08ae460ee584",
+        "planes": "7ab34029ad4332c922bcebe7261b3da9d7abf98afb55e2c75cd3b42c3e99b221",
+        "keystream": "4fbfa1817764ee4b369146a7f3537605ed4daed1dc16a2a27c22a51f49797d0b",
+    },
+}
+
+
+def threefry_lanes(params, window: int = WINDOW):
+    """Phase 7b's inputs from a seed: 4 session nonces, a key, and one
+    window of (session, counter) lanes."""
+    rng = np.random.default_rng(2027)
+    nonces = rng.integers(0, 256, (4, 16), dtype=np.uint8)
+    key = rng.integers(1, params.mod.q, params.n, dtype=np.uint32)
+    return (nonces, key, rng.integers(0, 4, window),
+            rng.integers(0, 2**16, window))
+
+
+def digest(*arrays) -> str:
+    """SHA-256 of the arrays' values as little-endian int64, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu() if hasattr(a, "is_cuda") else a      # torch tensors
+        h.update(np.asarray(a).astype("<i8").tobytes())
+    return h.hexdigest()
+
 
 SOURCES = {
     "keystream": ("src/repro_torch/csrc/keystream.cu",
@@ -500,6 +555,497 @@ def window_breakdown(dev, name: str, matrix_depth: int, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the multi-tenant TCP plane at serving width
+# ---------------------------------------------------------------------------
+TCP_PRESETS = (("hera-128a", 1), ("pasta-128l", 2))
+TCP_TENANTS = 4        # the registry's capacity; a fifth hello evicts
+TCP_SESSIONS = 2
+SERVER_THREAD = "hhe-farm"     # the plane's worker thread name prefix
+
+
+async def _one_request(client, cursor, sid, op, blocks, rng, lat):
+    """Send one request of the `_requests` mix over the client's
+    connection, pipelined: counters are predicted from the session cursor
+    (the plane reserves them in frame order), and the client half of the
+    decrypt direction runs before the frame goes out.  Returns what the
+    checks after the run need."""
+    p = client.params
+    l, q = p.l, p.mod.q
+    ctrs = np.arange(cursor[sid], cursor[sid] + blocks)
+    cursor[sid] += blocks
+    nonce = client.sessions[sid]["nonce"].copy()
+    msg = (rng.integers(-4096, 4097, (blocks, l)) / 1024.0).astype(np.float32)
+    tokens = rng.integers(0, min(q, 50000), (blocks, l)).astype(np.uint32)
+    back = None
+    t0 = time.perf_counter()
+    if op == "decrypt_tokens":          # ServeClient's inbound half
+        client.sessions[sid]["next_ctr"] = int(ctrs[0])
+        reply = await client.encrypt_to_server(sid, tokens)
+    elif op == "encrypt_tokens":        # ServeClient's outbound half
+        reply, back = await client.decrypt_from_server(sid, tokens)
+    else:
+        req = {"op": "submit", "tenant": client.tenant, "session": sid,
+               "hhe_op": op}
+        if op == "decrypt":
+            ct = client._cipher(nonce).encrypt(msg, ctrs)
+            req["payload"] = ct.cpu().numpy().astype(np.uint32)
+        elif op == "encrypt":
+            req["payload"] = msg
+        else:
+            req["blocks"] = blocks
+        reply = await client.call(req)
+    lat.setdefault(op, []).append((time.perf_counter() - t0) * 1e3)
+    return op, blocks, ctrs, nonce, msg, tokens, reply, back
+
+
+async def _drive_tenant(client, rng, lat, ready=None):
+    """One tenant over its own connection: hello, two sessions, then (once
+    ``ready`` returns) the request mix pipelined in two halves with a
+    live rotation of session 0 between them.  Returns the replies to
+    check and the drive's start and end times."""
+    await client.connect()
+    sessions = [await client.open_session() for _ in range(TCP_SESSIONS)]
+    plan = _requests(rng, TCP_SESSIONS)
+    cursor = dict.fromkeys(sessions, 0)
+    if ready is not None:
+        ready()
+    t0 = time.time()
+    half = len(plan) // 2
+    done = list(await asyncio.gather(*(
+        _one_request(client, cursor, sid, op, blocks, rng, lat)
+        for sid, op, blocks in plan[:half])))
+    old = client.sessions[sessions[0]]["nonce"].copy()
+    r = await client.rotate(sessions[0])     # other tenants keep running
+    check(r["generation"] == 1 and not np.array_equal(
+        client.sessions[sessions[0]]["nonce"], old),
+          f"{client.tenant}: rotation")
+    cursor[sessions[0]] = 0
+    done += await asyncio.gather(*(
+        _one_request(client, cursor, sid, op, blocks, rng, lat)
+        for sid, op, blocks in plan[half:]))
+    return done, t0, time.time()
+
+
+def check_round_trips(name, client, done):
+    """Every reply of one tenant, exact: echoed counters and nonce, and
+    each op's result against the client's own cipher (the port's
+    ``Cipher``, ``ref`` engine, on the card)."""
+    for op, blocks, ctrs, nonce, msg, tokens, r, back in done:
+        what = f"{name}/{op}/{blocks}"
+        check(r.get("ok"), f"{what}: {r}")
+        check(np.array_equal(r["ctrs"], ctrs), f"{what}: counters")
+        check(np.array_equal(r["nonce"], nonce), f"{what}: nonce")
+        res = r["result"]
+        if op == "decrypt_tokens":
+            check(res.dtype == np.int32 and np.array_equal(res, tokens),
+                  f"{what}: round trip")
+        elif op == "encrypt_tokens":
+            check(np.array_equal(back, tokens), f"{what}: round trip")
+        elif op == "decrypt":
+            check(res.dtype == np.float32 and np.array_equal(res, msg),
+                  f"{what}: round trip")
+        elif op == "encrypt":
+            dec = client._cipher(nonce).decrypt(res, ctrs).cpu().numpy()
+            check(res.dtype == np.uint32 and np.array_equal(dec, msg),
+                  f"{what}: round trip")
+        else:
+            z = client._cipher(nonce).keystream(ctrs).cpu().numpy()
+            check(res.dtype == np.uint32 and np.array_equal(res, z),
+                  f"{what}: keystream vs ref engine")
+
+
+def tcp_client_child(host: str, port: str, tenant: str, seed: str) -> int:
+    """Child mode: one tenant's client in its own process (its cipher on
+    the card, its own event loop), so the plane's loop and the timing see
+    what a remote client costs.  Protocol on stdin/stdout: print "ready"
+    after hello and the sessions, drive on "go", print the drive's JSON
+    line, check every round trip on "check", print "checked"."""
+    import torch
+
+    from repro_torch.serve.server import CODEC_JSON, ServeClient
+
+    dev = torch.device("cuda", 0)
+    lat = {}
+
+    def ready():
+        print("ready", flush=True)
+        check(sys.stdin.readline().strip() == "go", "no go")
+
+    client = ServeClient(host, int(port), tenant, codec=CODEC_JSON,
+                         device=dev)
+
+    async def run():
+        try:
+            return await _drive_tenant(client,
+                                       np.random.default_rng(int(seed)),
+                                       lat, ready)
+        finally:
+            await client.close()
+
+    done, t0, t1 = asyncio.run(run())
+    print(json.dumps({"tenant": tenant, "start": t0, "end": t1,
+                      "requests": len(done),
+                      "lanes": int(sum(d[1] for d in done)),
+                      "latency_ms": lat}), flush=True)
+    check(sys.stdin.readline().strip() == "check", "no check")
+    check_round_trips(tenant, client, done)
+    print("checked", flush=True)
+    return 0
+
+
+def serve_plane(dev, name: str, matrix_depth: int, seed: int) -> dict:
+    """One `ServePlane` on 127.0.0.1 for ``name`` in this process; four
+    tenants, each a JSON `ServeClient` in its own child process (cipher
+    on the card), drive the request mix at once, with one live rotation
+    each.  Launch counts are reset just before the go and read when every
+    client has finished its drive (this process runs only the plane then:
+    its launches are the plane's, all from the plane's worker thread).
+    Then a fifth tenant's hello evicts an idle one, which must release
+    its farm, and the clients check every round trip."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serve.server import CODEC_JSON, ServeClient, ServePlane
+    from repro_torch.serve.tenants import TenantRegistry
+
+    registry = TenantRegistry(
+        name, capacity=TCP_TENANTS, window=WINDOW, engine="auto", depth=2,
+        matrix_depth=matrix_depth, deadline_s=0.05, seed=seed, device=dev)
+    out = {}
+
+    async def line(proc):
+        raw = await asyncio.wait_for(proc.stdout.readline(), 600)
+        if not raw:
+            err = await proc.stderr.read()
+            raise RuntimeError(f"{name}: a client died:\n"
+                               f"{err.decode()[-3000:]}")
+        return raw.decode().strip()
+
+    async def tell(procs, word):
+        for proc in procs:
+            proc.stdin.write(word.encode() + b"\n")
+            await proc.stdin.drain()
+
+    async def run():
+        plane = ServePlane(registry, host="127.0.0.1", port=0)
+        host, port = await plane.start()
+        procs = []
+        try:
+            for i in range(TCP_TENANTS):
+                procs.append(await asyncio.create_subprocess_exec(
+                    sys.executable, str(Path(__file__).resolve()),
+                    "--tcp-client", host, str(port), f"tenant-{i}",
+                    str(seed * 10 + i), stdin=asyncio.subprocess.PIPE,
+                    stdout=asyncio.subprocess.PIPE,
+                    stderr=asyncio.subprocess.PIPE))
+            for proc in procs:
+                check(await line(proc) == "ready", f"{name}: client ready")
+            torch.cuda.synchronize()
+            build.reset_launches()                       # main path starts
+            await tell(procs, "go")
+            drives = [json.loads(await line(proc)) for proc in procs]
+            torch.cuda.synchronize()
+            out["launches"] = dict(build.LAUNCHES)       # main path ends
+            out["server_launches"] = {k: sum(
+                per[k] for t, per in build.THREAD_LAUNCHES.items()
+                if t.startswith(SERVER_THREAD)) for k in SOURCES}
+            stats = registry.stats()
+            out["fill_fires"] = sum(v["fill_fires"]
+                                    for v in stats["per_tenant"].values())
+            out["deadline_fires"] = sum(
+                v["deadline_fires"] for v in stats["per_tenant"].values())
+            servers = [registry.peek(t).server for t in registry.tenant_ids()]
+            wl = [x for srv in servers for x in srv.window_latencies]
+            out["windows"] = len(wl)
+            out["window_p50_ms"] = float(np.percentile(wl, 50) * 1e3)
+            out["window_p99_ms"] = float(np.percentile(wl, 99) * 1e3)
+            # submit to last lane materialized, inside the plane
+            rl = [x for srv in servers for x in srv.latencies]
+            out["server_request_p50_ms"] = float(np.percentile(rl, 50) * 1e3)
+            out["server_request_p99_ms"] = float(np.percentile(rl, 99) * 1e3)
+            del servers      # the eviction below must free a farm
+            # a fifth tenant: its hello evicts the least recently active
+            # idle tenant, whose farm must then be freed
+            farms = {tid: weakref.ref(registry.peek(tid).server.farm)
+                     for tid in registry.tenant_ids()}
+            fifth = ServeClient(host, port, f"tenant-{TCP_TENANTS}",
+                                codec=CODEC_JSON, device=dev)
+            try:
+                await fifth.connect()
+                gc.collect()
+                gone = [tid for tid, ref in farms.items() if ref() is None]
+                check(registry.evictions == 1 and len(gone) == 1
+                      and gone[0] not in registry
+                      and len(registry) == TCP_TENANTS,
+                      f"{name}: eviction (evicted {gone}, "
+                      f"{registry.stats()})")
+                out["evicted"] = gone[0]
+                s = await fifth.open_session()
+                toks = np.random.default_rng(seed).integers(
+                    0, registry.params.mod.q, (8, registry.params.l),
+                    dtype=np.uint32)
+                r = await fifth.encrypt_to_server(s, toks)
+                check(r["ok"] and np.array_equal(r["result"], toks),
+                      f"{name}: round trip of the fifth tenant")
+            finally:
+                await fifth.close()
+            await tell(procs, "check")
+            for proc in procs:
+                check(await line(proc) == "checked", f"{name}: checks")
+                check(await proc.wait() == 0, f"{name}: client exit")
+            return drives
+        finally:
+            for proc in procs:
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+            await plane.stop()
+
+    drives = asyncio.run(run())
+    out["json_codec_ms_2048_blocks"] = codec_ms(registry.params)
+    for k in MAIN_PATH:
+        check(out["server_launches"][k] > 0,
+              f"{name}: the plane never launched kernel {k}")
+    check(out["server_launches"] == {k: out["launches"][k] for k in SOURCES},
+          f"{name}: launches outside the plane's worker thread")
+    wall = max(d["end"] for d in drives) - min(d["start"] for d in drives)
+    lat = {}
+    for d in drives:
+        for op, v in d["latency_ms"].items():
+            lat.setdefault(op, []).extend(v)
+    n_req = sum(d["requests"] for d in drives)
+    lanes = sum(d["lanes"] for d in drives)
+    out.update({
+        "tenants": TCP_TENANTS, "client_processes": len(drives),
+        "requests": n_req, "lanes": lanes, "rotations": len(drives),
+        "wall_s": wall, "requests_per_s": n_req / wall,
+        "keystream_words_per_s": lanes * registry.params.l / wall,
+        "request_ms": {op: {"p50": float(np.percentile(v, 50)),
+                            "p99": float(np.percentile(v, 99)),
+                            "count": len(v)}
+                       for op, v in sorted(lat.items())},
+        "drive_s": {d["tenant"]: d["end"] - d["start"] for d in drives},
+    })
+    log(f"  {name}: {json.dumps(out)}")
+    return out
+
+
+def codec_ms(params, reps: int = 5) -> float:
+    """Host ms to encode and decode one JSON submit reply of 2048 blocks
+    (a uint32 result plus its counters), the codec's share of a large
+    request's round trip."""
+    from repro_torch.serve.server import CODEC_JSON, HEADER, decode_body, \
+        encode_frame
+
+    rng = np.random.default_rng(0)
+    reply = {"ok": True, "id": 1, "generation": 0, "latency_ms": 1.0,
+             "result": rng.integers(0, params.mod.q, (2048, params.l))
+             .astype(np.uint32),
+             "ctrs": np.arange(2048, dtype=np.uint32),
+             "nonce": np.zeros(16, np.uint8)}
+    t = time.perf_counter()
+    for _ in range(reps):
+        decode_body(encode_frame(reply, CODEC_JSON)[HEADER.size:],
+                    CODEC_JSON)
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+class TimedCall:
+    """Wraps a callable: CUDA events on the current stream just before
+    and just after each call, so ``spans`` are the device intervals of
+    the work it enqueued (after any wait the stream was given first);
+    ``host`` holds the host clock at entry and exit."""
+
+    def __init__(self, fn):
+        self.fn, self.spans, self.host = fn, [], []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h = time.perf_counter()
+        a.record()
+        out = self.fn(*args, **kwargs)
+        b.record()
+        self.spans.append((a, b))
+        self.host.append((h, time.perf_counter()))
+        return out
+
+
+def worker_overlap(dev, name: str, matrix_depth: int, seed: int) -> dict:
+    """The farm driven from a worker thread as the plane drives it (each
+    window's keystream read to the host right after its push), at depth
+    1 and depth 2: ms per window, and how long the producer's work (side
+    stream) and the consumer's (the worker's stream) ran at the same time
+    on the card, from CUDA events around every produce and consume call.
+    Every window is checked against the ``ref`` engine."""
+    import concurrent.futures
+
+    import torch
+
+    from repro_torch.core.cipher import CipherBatch
+    from repro_torch.core.farm import KeystreamFarm, plan_windows
+
+    def job(depth):
+        torch.cuda.set_device(dev)
+        cb = CipherBatch(name, seed=seed, device=dev)
+        cb.add_sessions(SESSIONS)
+        plans = plan_windows(cb.sessions, 7 * WINDOW // SESSIONS, WINDOW)
+        farm = KeystreamFarm(cb, engine="auto", depth=depth,
+                             matrix_depth=matrix_depth if depth > 1 else 1)
+        pipe = farm.pipeline()
+        # warm-up: two windows, so the pinned host buffers of two windows
+        # in flight are allocated before the timed ones
+        for _, z in pipe.push(plans[0]) + pipe.push(plans[1]) + pipe.drain():
+            z.cpu()
+        produce = TimedCall(cb.producer.produce)
+        cb.producer.produce = produce
+        farm.engine = consume = TimedCall(farm.engine)
+        t0 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        host0 = time.perf_counter()
+        outs, in_flight = [], []
+        for plan in plans[2:]:
+            got = pipe.push(plan)
+            in_flight.append(pipe.in_flight())
+            outs += [(p, z.cpu()) for p, z in got]   # as HHEServer does
+        outs += [(p, z.cpu()) for p, z in pipe.drain()]
+        torch.cuda.synchronize()
+        per_window = (time.perf_counter() - host0) * 1e3 / len(outs)
+        del cb.producer.produce
+
+        def spans(timed):
+            return [(t0.elapsed_time(a), t0.elapsed_time(b))
+                    for a, b in timed.spans]
+
+        p_spans, c_spans = spans(produce), spans(consume)
+        both = sum(max(0.0, min(c1, p1) - max(c0, p0))
+                   for c0, c1 in c_spans for p0, p1 in p_spans)
+
+        def host(timed):     # ms since t0 on the host clock
+            return [((a - host0) * 1e3, (b - host0) * 1e3)
+                    for a, b in timed.host]
+
+        # per consume call: its device span, and the device and host spans
+        # of the produce call dispatched just before it (depth 2: the next
+        # window's; depth 1: its own); host and device clocks share t0
+        timeline = [{"consume": c, "produce_before": p, "produce_host": h}
+                    for c, p, h in zip(c_spans, p_spans[len(p_spans)
+                                                        - len(c_spans):],
+                                       host(produce)[len(p_spans)
+                                                     - len(c_spans):])]
+        for plan, z in outs:
+            want = cb.keystream(plan.session_ids, plan.block_ctrs).cpu()
+            check(torch.equal(z, want), f"{name}: worker-thread window")
+        return {"windows": len(outs), "ms_per_window": per_window,
+                "in_flight_after_push": in_flight,
+                "produce_ms": sum(b - a for a, b in p_spans),
+                "consume_ms": sum(b - a for a, b in c_spans),
+                "overlap_ms": both, "timeline_ms": timeline,
+                "thread": threading.current_thread().name}
+
+    out = {}
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="overlap") as ex:
+        for depth in (1, 2):
+            out[f"depth{depth}"] = ex.submit(job, depth).result()
+    check(out["depth2"]["windows"] == 5
+          and max(out["depth2"]["in_flight_after_push"]) >= 1,
+          f"{name}: depth 2 kept no window in flight")
+    log(f"  {name} farm from a worker thread: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the threefry and cached producers
+# ---------------------------------------------------------------------------
+def producers_phase(dev) -> dict:
+    """Threefry words, planes and keystream on the card against the JAX
+    reference's digests, the ``cuda`` engine on threefry constants
+    against the ``ref`` engine, both producers timed per window, and the
+    cached producer's hits, identity and rotation miss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.cipher import CipherBatch
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.params import get_params
+    from repro_torch.core.producer import make_producer
+    from repro_torch.crypto.xof import threefry_xof_words_batched
+
+    out = {}
+    for base in THREEFRY_PRESETS:
+        p = dataclasses.replace(get_params(base), xof="threefry")
+        nonces, key, sids, ctrs = threefry_lanes(p)
+        golden = THREEFRY_GOLDEN[base]
+        d = DIGEST_LANES
+        prod = make_producer(None, p, device=dev)
+        check(prod.name == "threefry", f"{base}: producer {prod.name}")
+        tables = prod.stack_tables([prod.session_material(n) for n in nonces])
+        sid_t = torch.as_tensor(sids, device=dev)
+        ctr_t = torch.as_tensor(ctrs, device=dev)
+        n_words = p.xof_words_per_block()
+
+        def words():
+            return threefry_xof_words_batched(tables.device[0][sid_t], ctr_t,
+                                              n_words)
+
+        check(digest(words()[:d]) == golden["words"], f"{base}: words")
+        c = prod.produce(tables, sid_t, ctr_t)
+        planes = [c[k] for k in ("rc", "noise", "mats") if c[k] is not None]
+        check(digest(*[x[:d] for x in planes]) == golden["planes"],
+              f"{base}: planes")
+        z_cuda = make_engine("cuda", p, key, device=dev) \
+            .keystream_from_constants(c["rc"], c["noise"], c["mats"])
+        z_ref = make_engine("ref", p, key, device=dev) \
+            .keystream_from_constants(c["rc"], c["noise"], c["mats"])
+        check(torch.equal(z_cuda, z_ref), f"{base}: cuda vs ref engine")
+        check(digest(z_ref[:d]) == golden["keystream"], f"{base}: keystream")
+        del c, planes, z_cuda, z_ref
+        aes = make_producer("aes", get_params(base), device=dev)
+        a_tables = aes.stack_tables([aes.session_material(n) for n in nonces])
+        r = {"lanes": WINDOW, "words_per_lane": n_words,
+             "threefry_words_ms": time_ms(words, 3),
+             "threefry_producer_ms": time_ms(
+                 lambda: prod.produce(tables, sid_t, ctr_t), 3),
+             "aes_producer_ms": time_ms(
+                 lambda: aes.produce(a_tables, sid_t, ctr_t), 3)}
+        torch.cuda.empty_cache()
+        # cached: a repeated window hits and is the same; a rotated
+        # session misses
+        cb = CipherBatch(p, key=key, producer="cached", engine="auto",
+                         device=dev)
+        for n in nonces:
+            cb.add_session(n)
+        z1 = cb.keystream(sid_t, ctr_t)
+        z2 = cb.keystream(sid_t, ctr_t)
+        s1 = cb.producer.cache_stats()
+        check(s1["misses"] == 1 and s1["hits"] == 1 and torch.equal(z1, z2),
+              f"{base}: cached repeat {s1}")
+        r["cached_hit_ms"] = time_ms(
+            lambda: cb.producer.produce(cb.xof_tables(), sid_t, ctr_t), 3)
+        cb.rotate_session(0)
+        z3 = cb.keystream(sid_t, ctr_t)
+        s2 = cb.producer.cache_stats()
+        mine = sid_t == 0
+        check(s2["misses"] == 2 and torch.equal(z3[~mine], z1[~mine])
+              and not torch.equal(z3[mine], z1[mine]),
+              f"{base}: cached after rotation {s2}")
+        r["cached_stats"] = cb.producer.cache_stats()
+        out[base] = r
+        del cb, z1, z2, z3
+        torch.cuda.empty_cache()
+        log(f"  {base} (threefry): {json.dumps(r)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -701,11 +1247,14 @@ EXTRA_TIMES = {"keystream": ("wrapper_ms", "prepare_ms", "host_ms"),
                "aes_xof": ("host_ms",)}
 
 
-def kernel_entries(rows: dict, times: dict, launches: dict, errors: Errors,
+def kernel_entries(rows: dict, times: dict, launches: dict,
+                   launches_tcp: dict, errors: Errors,
                    with_baseline: bool) -> list:
     """The ``kernels`` JSON entries: each kernel's head-preset row from
     :func:`time_kernels`, its times from :func:`merge_times`, the main
-    path's launch count and the largest error seen."""
+    paths' launch counts (``HHEServer`` in phase 5 plus the TCP plane's
+    worker thread in phase 7; each path's own beside) and the largest
+    error seen."""
     head = times[HEAD]
     kernels = []
     for name in ("keystream", "aes_xof", "mrmc", "aes_ctr"):
@@ -721,7 +1270,10 @@ def kernel_entries(rows: dict, times: dict, launches: dict, errors: Errors,
         on_path = name in MAIN_PATH
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + launches_tcp[name],
+            "launches_by_path": {"hhe_server": launches[name],
+                                 "tcp_plane": launches_tcp[name]},
             "on_main_path": on_path,
             "note": ("" if on_path else
                      "off the main path: its device code runs inside the "
@@ -762,6 +1314,7 @@ def main(argv) -> int:
                     help="an unpacked earlier tree of this repository to "
                          "time beside this one")
     ap.add_argument("--baseline-child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--tcp-client", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
@@ -772,6 +1325,8 @@ def main(argv) -> int:
     if args.baseline_child is not None:
         return baseline_child(args.baseline_child)
     sys.path.insert(0, str(ROOT / "src"))
+    if args.tcp_client is not None:
+        return tcp_client_child(*args.tcp_client)
     from repro_torch.kernels import build
 
     baseline = args.baseline
@@ -805,6 +1360,7 @@ def main(argv) -> int:
     log("[5] serving (main path)")
     serving = {}
     launches = {k: 0 for k in SOURCES}
+    launches_tcp = {k: 0 for k in SOURCES}
     for i, (name, mdepth) in enumerate(SERVE_PRESETS):
         serving[name] = serve_preset(dev, name, mdepth, seed=100 + i)
         for k, v in serving[name]["launches"].items():
@@ -830,11 +1386,28 @@ def main(argv) -> int:
     times = merge_times(this_runs, base_runs)
     log(json.dumps({"times": times}))
     phases["timing_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log("[7] the multi-tenant TCP plane (main path, over the wire)")
+    plane = {}
+    for i, (name, mdepth) in enumerate(TCP_PRESETS):
+        plane[name] = serve_plane(dev, name, mdepth, seed=300 + i)
+        plane[name]["worker_farm"] = worker_overlap(dev, name, mdepth,
+                                                    seed=400 + i)
+        for k, v in plane[name]["server_launches"].items():
+            launches_tcp[k] += v
+    log(json.dumps({"tcp_plane": plane}))
+    phases["tcp_plane_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log("[7b] the threefry and cached producers")
+    log(json.dumps({"producers": producers_phase(dev)}))
+    phases["producers_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({"phases": phases}))
 
-    kernels = kernel_entries(rows, times, launches, errors,
+    kernels = kernel_entries(rows, times, launches, launches_tcp, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))
     print(smi)

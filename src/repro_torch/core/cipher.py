@@ -98,6 +98,16 @@ class Cipher:
             constants["rc"], constants["noise"], constants.get("mats")
         )
 
+    def keystream_coupled(self, block_ctrs):
+        """D1-style baseline: sample ALL constants, then run the rounds,
+        with no overlap.  On the card one synchronize between the two
+        stands in for the reference's ``optimization_barrier``."""
+        c = self.round_constant_stream(block_ctrs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.keystream_from_constants(c["rc"], c["noise"],
+                                             c.get("mats"))
+
     def encrypt(self, m_real, block_ctrs, delta: float = 1024.0,
                 constants=None):
         z = self.keystream(block_ctrs, constants)
@@ -192,6 +202,31 @@ class CipherBatch:
         return make_engine(spec, self.params, self.key, device=self.device,
                            variant=variant, reduction=reduction)
 
+    # ---------------- producer plumbing -----------------------------------
+    def set_producer(self, spec: ProducerSpec) -> ConstantsProducer:
+        """Swap the RNG backend in place; per-session material is rebuilt
+        from the live nonces, so sessions keep their (nonce, counter)
+        spaces.  Only stream-preserving swaps are allowed: on another XOF
+        stream the same (nonce, ctr) pairs would give other keystream and
+        clients' earlier ciphertexts would decrypt to garbage, so a
+        mismatched spec raises (a different stream is chosen at
+        construction)."""
+        prod = make_producer(spec, self.params, device=self.device)
+        if prod.caps.stream not in (None, self.params.xof):
+            raise ValueError(
+                f"producer {prod.name!r} emits the {prod.caps.stream!r} "
+                f"stream but this pool's preset declares "
+                f"{self.params.xof!r}; swapping a live pool across streams "
+                "would silently change every keystream — construct a new "
+                "CipherBatch for a different stream"
+            )
+        self.producer = prod
+        self._mat_host = [
+            self.producer.session_material(s.nonce) for s in self.sessions
+        ]
+        self._tables = None
+        return self.producer
+
     # ---------------- session pool ---------------------------------------
     def add_session(self, nonce=None) -> StreamSession:
         if nonce is None:
@@ -217,6 +252,11 @@ class CipherBatch:
         self._mat_host[session_id] = self.producer.session_material(s.nonce)
         self._tables = None
         return s
+
+    def session_cipher(self, session_id: int) -> Cipher:
+        """Single-stream view of one session (the bit-exactness oracle)."""
+        return Cipher(self.params, self.key, self.sessions[session_id].nonce,
+                      producer=self.producer.name, device=self.device)
 
     def xof_tables(self):
         """Device-side per-session producer material, rebuilt lazily on

@@ -258,6 +258,10 @@ class FarmPipeline:
         self._fifo: deque = deque()     # (plan, produced[, produced mats])
         self._mfifo: deque = deque()    # (plan, produced matrix plane)
 
+    def in_flight(self) -> int:
+        """Windows dispatched (producer running) but not yet consumed."""
+        return len(self._fifo) + len(self._mfifo)
+
     def _promote(self) -> None:
         plan, mats = self._mfifo.popleft()
         self._fifo.append((plan, self.farm.produce(plan, "vector"), mats))

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.crypto.modmath import Modulus
+from repro_torch.device import upload
 
 # Safety pad for the stream sampler: P(more than STREAM_PAD rejections out
 # of a few hundred draws at p < 2.5e-4) is < 1e-40.
@@ -84,8 +85,8 @@ def discrete_gaussian(words_hi, words_lo, table: DGaussTable):
     words_hi/lo: int64 tensors of word values (the 64-bit uniform draw).
     """
     dev = words_hi.device
-    hi_t = torch.as_tensor(table.hi.astype(np.int64), device=dev)
-    lo_t = torch.as_tensor(table.lo.astype(np.int64), device=dev)
+    hi_t = upload(table.hi.astype(np.int64), dev)
+    lo_t = upload(table.lo.astype(np.int64), dev)
     u_hi = words_hi[..., None]
     u_lo = words_lo[..., None]
     ge = (u_hi > hi_t) | ((u_hi == hi_t) & (u_lo >= lo_t))

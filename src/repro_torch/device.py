@@ -7,6 +7,7 @@ to ask for the plain PyTorch path on the host.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``, queued on the current stream
+    without making the host wait for that stream.  A copy from pageable
+    memory first waits for all work already queued on the stream (inside
+    a farm produce: the previous window's producer on the side stream),
+    so the copy goes through pinned memory, asynchronously."""
+    t = torch.from_numpy(np.require(array, requirements=["C", "W"]))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -87,7 +87,7 @@ def aes_ctr_kernel_apply(round_keys, nonce12, counters):
                             n12.data_ptr(), ctr.data_ptr(), out.data_ptr(),
                             lanes, build.stream_handle(dev))
     build.check(err, "aes_ctr kernel")
-    build.LAUNCHES["aes_ctr"] += 1
+    build.count_launch("aes_ctr")
     return out
 
 
@@ -119,5 +119,5 @@ def aes_xof_words(rk_table, n12_table, session_ids, block_ctrs,
                             ctr.data_ptr(), out.data_ptr(), lanes, n_words,
                             build.stream_handle(dev))
     build.check(err, "aes_xof kernel")
-    build.LAUNCHES["aes_xof"] += 1
+    build.count_launch("aes_xof")
     return out

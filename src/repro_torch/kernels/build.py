@@ -10,7 +10,10 @@ unchanged one loads the cached file.  Each source compiles in its own
 Every C entry point takes device pointers, sizes and the caller's CUDA
 stream, launches without synchronising, and returns ``cudaGetLastError()``;
 :func:`check` raises on anything but 0.  Each kernel wrapper counts its
-launches in :data:`LAUNCHES`.
+launches through :func:`count_launch`: in :data:`LAUNCHES`, and by the
+name of the launching thread in :data:`THREAD_LAUNCHES` (the serving
+plane launches from its ``hhe-farm`` worker thread, its clients from
+theirs).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +36,9 @@ FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"aes_ctr": 0, "aes_xof": 0, "mrmc": 0, "keystream": 0}
+#: The same launches by the name of the thread that made them.
+THREAD_LAUNCHES: dict = {}
+_launch_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,8 +58,20 @@ build_seconds = 0.0
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        THREAD_LAUNCHES.clear()
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch of ``kernel`` (called by its wrapper right after
+    the launch, and nowhere else)."""
+    thread = threading.current_thread().name
+    with _launch_lock:
+        LAUNCHES[kernel] += 1
+        per = THREAD_LAUNCHES.setdefault(thread, dict.fromkeys(LAUNCHES, 0))
+        per[kernel] += 1
 
 
 def _nvcc() -> str:

@@ -175,7 +175,7 @@ def launch_keystream(params: CipherParams, ops: dict, *,
         out.data_ptr(), params.l, lanes, q, (1 << 64) // q,
         build.stream_handle(dev))
     build.check(err, "keystream kernel")
-    build.LAUNCHES["keystream"] += 1
+    build.count_launch("keystream")
     return out
 
 

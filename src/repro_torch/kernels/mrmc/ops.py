@@ -28,7 +28,7 @@ def launch_mrmc(params: CipherParams, planes):
                          planes.shape[1], q, (1 << 64) // q,
                          build.stream_handle(planes.device))
     build.check(err, "mrmc kernel")
-    build.LAUNCHES["mrmc"] += 1
+    build.count_launch("mrmc")
     return out
 
 

@@ -223,3 +223,80 @@ def test_card_server_roundtrip(cuda):
     dec = ref.decrypt(enc.result, np.zeros(40, np.int64), enc.block_ctrs,
                       delta=64.0)
     np.testing.assert_array_equal(dec.numpy(), m.astype(np.float32))
+
+
+@pytest.mark.gpu
+def test_card_serve_plane_with_cpu_client(cuda):
+    """A torch `ServePlane` serving from the card to a `ServeClient` whose
+    cipher runs on the CPU: both HHE directions and a live rotation,
+    exact, with the plane's kernels launched from its worker thread."""
+    import asyncio
+
+    from repro_torch.serve.server import ServeClient, ServePlane
+    from repro_torch.serve.tenants import TenantRegistry
+
+    reg = TenantRegistry("hera-80", capacity=2, window=64, deadline_s=0.01,
+                         device=cuda)
+
+    async def main():
+        plane = ServePlane(reg, port=0, tick_s=0.002)
+        host, port = await plane.start()
+        c = ServeClient(host, port, "t", device="cpu")
+        try:
+            await c.connect()
+            rng = np.random.default_rng(1)
+            q, l = c.params.mod.q, c.params.l
+            s = await c.open_session()
+            toks = rng.integers(0, q, (70, l), dtype=np.uint32)
+            r = await c.encrypt_to_server(s, toks)
+            assert r["ok"], r
+            np.testing.assert_array_equal(r["result"], toks)
+            await c.rotate(s)
+            r, back = await c.decrypt_from_server(s, toks[:9])
+            assert r["ok"] and r["generation"] == 1, r
+            np.testing.assert_array_equal(back, toks[:9])
+        finally:
+            await c.close()
+            await plane.stop()
+
+    build.reset_launches()
+    asyncio.run(main())
+    farm = {k: sum(per[k] for t, per in build.THREAD_LAUNCHES.items()
+                   if t.startswith("hhe-farm")) for k in build.LAUNCHES}
+    assert farm["keystream"] > 0 and farm["aes_xof"] > 0, farm
+    assert reg.peek("t").server.farm.engine.name == "cuda"
+
+
+@pytest.mark.gpu
+def test_card_threefry_matches_reference_digests(cuda):
+    """The threefry words, planes and keystream on the card equal the JAX
+    reference's digests that chip_smoke.py holds (hera-128a)."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.producer import make_producer
+    from repro_torch.crypto.xof import threefry_xof_words_batched
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    p = dataclasses.replace(get_params("hera-128a"), xof="threefry")
+    nonces, key, sids, ctrs = cs.threefry_lanes(p)
+    sids, ctrs = sids[:cs.DIGEST_LANES], ctrs[:cs.DIGEST_LANES]
+    want = cs.THREEFRY_GOLDEN["hera-128a"]
+    prod = make_producer(None, p, device=cuda)
+    tables = prod.stack_tables([prod.session_material(n) for n in nonces])
+    sid = torch.as_tensor(sids, device=cuda)
+    words = threefry_xof_words_batched(tables.device[0][sid], ctrs,
+                                       p.xof_words_per_block())
+    assert words.is_cuda and cs.digest(words) == want["words"]
+    c = prod.produce(tables, sids, ctrs)
+    assert cs.digest(c["rc"]) == want["planes"]
+    z = make_engine("cuda", p, key, device=cuda).keystream_from_constants(
+        c["rc"], c["noise"], c["mats"])
+    _exact(z, make_engine("ref", p, key, device=cuda)
+           .keystream_from_constants(c["rc"], c["noise"], c["mats"]))
+    assert cs.digest(z) == want["keystream"]

@@ -19,7 +19,10 @@ from repro_torch.core.cipher import CipherBatch, make_cipher  # noqa: E402
 from repro_torch.core.engine import make_engine, resolve_engine  # noqa: E402
 from repro_torch.core.params import get_params  # noqa: E402
 from repro_torch.core.producer import make_producer  # noqa: E402
+from repro_torch.crypto.xof import threefry_xof_words  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.serve.server import ServeClient  # noqa: E402
+from repro_torch.serve.tenants import TenantRegistry  # noqa: E402
 
 PKG = Path(repro_torch.__file__).resolve().parent
 
@@ -31,7 +34,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "repro_torch.serve.hhe_loop" in mods
+    assert {"repro_torch.serve.hhe_loop", "repro_torch.serve.tenants",
+            "repro_torch.serve.server"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -72,10 +76,15 @@ def no_cuda(monkeypatch):
     lambda: make_cipher("rubato-128s"),
     lambda: make_producer(None, get_params("pasta-128s")),
     lambda: make_engine("auto", get_params("hera-80"), np.ones(16)),
+    lambda: make_producer("threefry", get_params("hera-80")),
+    lambda: threefry_xof_words(np.zeros(16, np.uint8), [0], 4),
+    lambda: TenantRegistry("hera-80"),
+    lambda: ServeClient("127.0.0.1", 1, "t"),
     lambda: resolve_device(None),
     lambda: resolve_device("cuda"),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
-        "default", "cuda"])
+        "threefry_producer", "threefry_words", "TenantRegistry",
+        "ServeClient", "default", "cuda"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

@@ -13,8 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
 3. kernels against their plain PyTorch versions on the card, exactly, at
    lane counts that cut a lane group and a thread block (1, 31, 1000,
    4096): AES (FIPS-197, CTR counters x 3 sessions, XOF words of several
-   sessions), MRMC for v in {4, 6, 8} with PASTA's branch folding, and the
-   fused keystream for 7 presets x {normal, alternating} x {lazy, eager} x
+   sessions), MRMC on every preset (v in {4, 6, 8}, one or two branches)
+   on random states and on the edge values 0 and q-1, and the fused
+   keystream for 7 presets x {normal, alternating} x {lazy, eager} x
    noise, fed by the AES-kernel producer;
 4. the reference's 10 golden keystream digests through the kernel
    producer and the kernel engine;
@@ -27,7 +28,9 @@ Phases (any failure exits non-zero; nothing is caught):
    earlier commit of this repository, its kernels are timed on the same
    inputs in a child process, in turns with this tree's (baseline, this,
    this, baseline), and each kernel entry carries the baseline's time as
-   ``prev_ms``;
+   ``prev_ms``.  MRMC is also timed at 2^18 lanes of pasta-128l, where
+   the bytes and not the launch set its time, and its share of the bytes
+   bound is printed;
 7. the main path over the wire: one ``ServePlane`` per preset (hera-128a,
    pasta-128l with matrix_depth 2) at window 4096 on 127.0.0.1, four
    tenants with two sessions each driving the phase-5 request mix over
@@ -270,6 +273,7 @@ def check_kernels(dev, errors: Errors) -> None:
     from repro_torch.kernels.aes.ref import aes_ctr_ref, aes_xof_ref
     from repro_torch.kernels.keystream.ops import keystream_kernel_apply
     from repro_torch.kernels.keystream.ref import keystream_ref
+    from repro_torch.kernels.mrmc.ops import kernel_operands as mrmc_operands
     from repro_torch.kernels.mrmc.ops import mrmc_kernel_apply
     from repro_torch.kernels.mrmc.ref import mrmc_ref
 
@@ -305,15 +309,21 @@ def check_kernels(dev, errors: Errors) -> None:
     log(f"  aes: FIPS-197 ok; CTR and XOF ({len(nonces)} sessions) exact at "
         f"{CHECK_LANE_COUNTS} lanes")
 
-    # B: v = 4, 6, 8 with PASTA's two branches folded into the lane axis
-    for name in ("hera-128a", "rubato-128m", "rubato-128l", "pasta-128s",
-                 "pasta-128l"):
+    # B: v = 4, 6, 8, one or two branches, on random states and on the
+    # edge values 0 and q-1; the caller's int64 states read in place
+    for name in sorted(REGISTRY):
         p = get_params(name)
-        x = torch.as_tensor(rng.integers(0, p.mod.q, (WINDOW, p.n)),
-                            device=dev)
-        errors.same("mrmc", mrmc_kernel_apply(p, x), mrmc_ref(p, x),
-                    f"mrmc {name}")
-    log("  mrmc: v=4,6,8 (+2 branches) x 4096 lanes exact")
+        x = torch.as_tensor(rng.integers(0, p.mod.q, (top, p.n)), device=dev)
+        for n in CHECK_LANE_COUNTS:
+            for what, xs in (("random", x[:n]),
+                             ("zeros", torch.zeros_like(x[:n])),
+                             ("q-1", torch.full_like(x[:n], p.mod.q - 1))):
+                errors.same("mrmc", mrmc_kernel_apply(p, xs), mrmc_ref(p, xs),
+                            f"mrmc {name} {what} {n} lanes")
+        check(mrmc_operands(p, x).data_ptr() == x.data_ptr(),
+              "mrmc reads the caller's states in place")
+    log(f"  mrmc: {len(REGISTRY)} presets (v=4,6,8, 1-2 branches) x random,"
+        f" 0, q-1 x {CHECK_LANE_COUNTS} lanes exact")
 
     # A: every preset x variant x reduction x noise x lane count, planes
     # from the AES-kernel producer (leading rows of one 4096-lane draw)
@@ -1078,9 +1088,12 @@ def main_kernel_times(dev) -> dict:
     from repro_torch.kernels.mrmc import ops as MO
 
     # operand preparation in this tree; a baseline tree from before the
-    # kernel read the producer's planes in place names its layout copy
-    # lane_major_inputs (the fallback serves only such a baseline)
+    # kernels read their operands in place names its layout copies
+    # lane_major_inputs and lane_major_states (the fallbacks serve only
+    # such a baseline)
     prepare = getattr(KO, "kernel_operands", None) or KO.lane_major_inputs
+    prepare_mrmc = (getattr(MO, "kernel_operands", None)
+                    or MO.lane_major_states)
     out = {}
     for index, name in enumerate(sorted(REGISTRY)):
         p, cb, sids, ctrs, k = timing_inputs(dev, name, index)
@@ -1105,9 +1118,16 @@ def main_kernel_times(dev) -> dict:
             lambda: aes_xof_words(rk, n12, sid_t, ctr_t, n_words), 10)
         x = torch.as_tensor(np.random.default_rng(5).integers(
             0, p.mod.q, (WINDOW, p.n)), device=dev)
-        x_lm = MO.lane_major_states(p, x)
-        r["mrmc_ms"] = graph_ms(lambda: MO.launch_mrmc(p, x_lm), 20)
+        x_ops = prepare_mrmc(p, x)
+        r["mrmc_ms"] = graph_ms(lambda: MO.launch_mrmc(p, x_ops), 20)
+        r["mrmc_wrapper_ms"] = graph_ms(
+            lambda: MO.mrmc_kernel_apply(p, x), 20)
+        r["mrmc_prepare_ms"] = time_ms(lambda: prepare_mrmc(p, x), 20)
         if name == HEAD:
+            xb = bandwidth_states(p, dev)
+            xb_ops = prepare_mrmc(p, xb)
+            r["mrmc_bw_ms"] = graph_ms(lambda: MO.launch_mrmc(p, xb_ops), 5)
+            del xb, xb_ops
             nonce = np.arange(16, dtype=np.uint8)
             rk1 = torch.as_tensor(aes128_key_expand(nonce), device=dev)
             c = torch.as_tensor(np.arange(WINDOW), device=dev)
@@ -1120,6 +1140,29 @@ def main_kernel_times(dev) -> dict:
 
 
 HEAD = "pasta-128l"
+# MRMC at a size where the launch no longer hides the bytes: pasta-128l
+# states of 2^18 lanes (268 MB of int64 in, 268 MB out)
+BW_LANES = 2**18
+
+
+def bandwidth_states(p, dev):
+    """BW_LANES random states in [0, q) of a preset, made on the card from
+    a seed (the same in this tree and a baseline tree)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    return torch.randint(0, p.mod.q, (BW_LANES, p.n), generator=g,
+                         device=dev, dtype=torch.int64)
+
+
+def mrmc_bound(p, lanes: int, word_bytes: int):
+    """The MRMC bound at ``lanes`` states of a preset, each word read once
+    and written once at ``word_bytes``."""
+    v = p.v
+    ops = lanes * p.branches * (2 * v**3 * OPS["mac_small"]
+                                + 2 * v * v * OPS["reduce"])
+    return bound(2 * word_bytes * lanes * p.n, ops)
 
 
 def time_kernels(dev, errors: Errors) -> dict:
@@ -1175,20 +1218,23 @@ def time_kernels(dev, errors: Errors) -> dict:
             "plain_ms": x_plain, "bound_ms": b_ms, "bound_by": b_by,
             "bound_limit": b_lim,
             "words_per_lane": n_words}
-        # mrmc on the window's states: layout transform, plain version
+        # mrmc on the window's states: plain version, bounds for the
+        # caller's int64 states and for int32 ones
         x = torch.as_tensor(np.random.default_rng(5).integers(
             0, p.mod.q, (lanes, p.n)), device=dev)
-        lay_ms = time_ms(lambda: MO.lane_major_states(p, x), 20)
         errors.same("mrmc", MO.mrmc_kernel_apply(p, x), mrmc_ref(p, x),
                     f"mrmc {name} at {lanes} lanes")
         m_plain = time_ms(lambda: mrmc_ref(p, x), 5)
-        v = p.v
-        m_ops = lanes * p.branches * (2 * v**3 * OPS["mac_small"]
-                                      + 2 * v * v * OPS["reduce"])
-        b_ms, b_by, b_lim = bound(2 * 4 * lanes * p.n, m_ops)
-        per["mrmc"][name] = {"layout_ms": lay_ms, "plain_ms": m_plain,
-                             "bound_ms": b_ms, "bound_by": b_by,
-                             "bound_limit": b_lim}
+        b_ms, b_by, b_lim = mrmc_bound(p, lanes, 8)
+        per["mrmc"][name] = {"plain_ms": m_plain, "bound_ms": b_ms,
+                             "bound_by": b_by, "bound_limit": b_lim,
+                             "bound_ms_int32": mrmc_bound(p, lanes, 4)[0],
+                             "bytes": 2 * 8 * lanes * p.n}
+        if name == HEAD:
+            xb = bandwidth_states(p, dev)
+            errors.same("mrmc", MO.mrmc_kernel_apply(p, xb), mrmc_ref(p, xb),
+                        f"mrmc {name} at {BW_LANES} lanes")
+            del xb
         del k, want, x
         torch.cuda.empty_cache()
     rows = {kname: dict(per[kname][HEAD], shape=f"{HEAD}, {lanes} lanes",
@@ -1244,7 +1290,21 @@ TIMED = {"keystream": "keystream_ms", "aes_xof": "aes_xof_ms",
          "mrmc": "mrmc_ms", "aes_ctr": "aes_ctr_ms"}
 # per-preset times reported beside ``ms``, by kernel
 EXTRA_TIMES = {"keystream": ("wrapper_ms", "prepare_ms", "host_ms"),
-               "aes_xof": ("host_ms",)}
+               "aes_xof": ("host_ms",),
+               "mrmc": ("wrapper_ms", "prepare_ms")}
+
+
+def mrmc_bandwidth(times: dict) -> dict:
+    """The MRMC kernel at BW_LANES lanes of the head preset: its time (and
+    the baseline's), the int64 bytes bound and the share of it reached."""
+    from repro_torch.core.params import get_params
+
+    b_ms, b_by, b_lim = mrmc_bound(get_params(HEAD), BW_LANES, 8)
+    ms, prev = times[HEAD]["mrmc_bw_ms"], times[HEAD]["prev_mrmc_bw_ms"]
+    return {"shape": f"{HEAD}, {BW_LANES} lanes", "ms": ms, "prev_ms": prev,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_limit": b_lim,
+            "share_of_bound": b_ms / ms,
+            "prev_share_of_bound": b_ms / prev if prev else None}
 
 
 def kernel_entries(rows: dict, times: dict, launches: dict,
@@ -1282,6 +1342,8 @@ def kernel_entries(rows: dict, times: dict, launches: dict,
                      "entry of the same source"),
             "max_abs_err": errors.max[name], "ms": head[key],
             "prev_ms": head["prev_" + key],
+            **{pre + extra: head[f"{pre}{name}_{extra}"]
+               for extra in EXTRA_TIMES.get(name, ()) for pre in ("", "prev_")},
             "prev_note": ("baseline tree timed in turns on this card"
                           if with_baseline else
                           "no baseline tree given: not measured"),
@@ -1290,7 +1352,7 @@ def kernel_entries(rows: dict, times: dict, launches: dict,
             "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "ok": errors.max[name] == 0, "shape": r["shape"],
-            **({"per_preset": r["per_preset"]} if "per_preset" in r else {}),
+            **{k: r[k] for k in ("per_preset", "bandwidth") if k in r},
         })
     return kernels
 
@@ -1385,6 +1447,12 @@ def main(argv) -> int:
         base_runs.append(baseline_times(baseline))
     times = merge_times(this_runs, base_runs)
     log(json.dumps({"times": times}))
+    bw = mrmc_bandwidth(times)
+    log(f"  mrmc bandwidth: {bw['shape']}: {bw['ms']:.4f} ms against a "
+        f"{bw['bound_ms']:.4f} ms bound ({bw['bound_limit']}), "
+        f"{100 * bw['share_of_bound']:.1f}% of it"
+        + (f"; baseline {bw['prev_ms']:.4f} ms" if bw["prev_ms"] else ""))
+    log(json.dumps({"mrmc_bandwidth": bw}))
     phases["timing_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -1407,6 +1475,7 @@ def main(argv) -> int:
     phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({"phases": phases}))
 
+    rows["mrmc"]["bandwidth"] = bw
     kernels = kernel_entries(rows, times, launches, launches_tcp, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 // Device functions shared by the MRMC kernel (mrmc.cu) and the fused
 // keystream kernel (keystream.cu): Z_q arithmetic, the circulant's
 // coefficients, the transpose permutation and `mix_dot`, the one body of
-// the static M·X·Mᵀ.  The MRMC kernel (`mrmc_static`) runs every entry of a
-// state in one thread; the keystream kernel gives each word of the state
-// to its own thread of the lane's group.
+// the static M·X·Mᵀ.  Both kernels give each word of a state to its own
+// thread of the state's group, which forms that word of each half of the
+// product.
 //
 // Arithmetic.  The TPU datapath (repro/crypto/modmath.py) splits operands
 // into 14-bit limbs because the TPU has no 64-bit integer multiply, and the
@@ -64,40 +64,27 @@ __device__ __forceinline__ int tperm(int k) {
 // Row i of M_v times the V words x[0], x[s], ..., x[(V-1)·s]: one entry of
 // either half of M·X·Mᵀ.  The column mix is A[r][c] = mix_dot(r, X + c, V)
 // and the row mix Y[r][c] = mix_dot(c, A + r·V, 1) (row-major (V, V)
-// states).  lazy: the row sums its raw c·x terms in uint64 and reduces once
-// (the plan's lazy-accumulate); otherwise every term is reduced before it
-// is added, as the eager datapath does.  Inputs may be unreduced (< 2q
-// after a deferred ARK); the output is canonical.
+// states).  lazy: the row's raw terms are summed in uint64 and reduced
+// once (the plan's lazy-accumulate), and since row i of the circulant is
+// all ones plus 1 at column i and 2 at column i+1, that sum is
+// Σ_j x[j] + x[i] + 2·x[i+1]: V + 2 loads and adds with no coefficient
+// to form.  Otherwise every term is reduced before it is added, as the
+// eager datapath does.  Inputs may be unreduced (< 2q after a deferred
+// ARK); the output is canonical, and the same word either way.
 template <int V>
 __device__ __forceinline__ uint32_t mix_dot(int i, const uint32_t* x, int s,
                                             bool lazy, ModQ m) {
   uint64_t acc = 0;
+  if (lazy) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const uint64_t t = (uint64_t)mix_coef<V>(i, j) * x[j * s];
-    acc += lazy ? t : (uint64_t)mod_reduce(t, m);
+    for (int j = 0; j < V; ++j) acc += x[j * s];
+    const int i1 = i + 1 == V ? 0 : i + 1;
+    return mod_reduce(acc + x[i * s] + 2ull * x[i1 * s], m);
   }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    acc += mod_reduce((uint64_t)mix_coef<V>(i, j) * x[j * s], m);
   return mod_reduce(acc, m);
-}
-
-// y = M·X·Mᵀ (eager) for one (V, V) state stored row-major at x (word
-// stride xs), in one thread.  The state is loaded into registers first, so
-// y may alias x.
-template <int V>
-__device__ __forceinline__ void mrmc_static(const uint32_t* x, int xs,
-                                            uint32_t* y, int ys, ModQ m) {
-  uint32_t xr[V * V];
-#pragma unroll
-  for (int k = 0; k < V * V; ++k) xr[k] = x[k * xs];
-#pragma unroll
-  for (int r = 0; r < V; ++r) {
-    uint32_t a[V];  // row r of the column mix
-#pragma unroll
-    for (int c = 0; c < V; ++c) a[c] = mix_dot<V>(r, xr + c, V, false, m);
-#pragma unroll
-    for (int c = 0; c < V; ++c)
-      y[(r * V + c) * ys] = mix_dot<V>(c, a, 1, false, m);
-  }
 }
 
 }  // namespace repro

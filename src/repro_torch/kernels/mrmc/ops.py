@@ -1,9 +1,11 @@
 """Wrapper for the CUDA MRMC kernel (csrc/mrmc.cu).
 
-Public layout as in the reference: (lanes, n) row-major states.  Branches
-fold into the kernel's column axis, so (lanes, b, v, v) becomes a
-lane-major (v·v, lanes·b) plane; the kernel is oblivious to where lanes
-end and branches begin.  CPU tensors take the plain version.
+Public layout as in the reference: (lanes, n) row-major int64 states,
+PASTA's branches each mixed by the same M_v.  A branch's v² words are
+adjacent in that layout, so the kernel reads the caller's tensor where it
+lies as a run of (v, v) states and writes a new row-major int64 tensor:
+no permute, narrowing or widening copy (:func:`kernel_operands`).  CPU
+tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -15,31 +17,31 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mrmc.ref import mrmc_ref
 
 
-def launch_mrmc(params: CipherParams, planes):
-    """Launch the kernel on a contiguous lane-major (v·v, cols) int32
-    plane (cols = lanes · branches); returns the same layout."""
-    v = params.v
-    build.require_cuda(planes, "planes", torch.int32,
-                       (v * v, planes.shape[1]))
-    out = torch.empty_like(planes)
+def kernel_operands(params: CipherParams, x):
+    """The kernel's operand: the caller's (lanes, n) states as contiguous
+    int64 — the same tensor when it already is one; a strided view or
+    another dtype is converted once."""
+    if x.dim() != 2 or x.shape[1] != params.n:
+        raise ValueError(f"states shape {tuple(x.shape)} != (lanes, "
+                         f"{params.n})")
+    return x.to(torch.int64).contiguous()
+
+
+def launch_mrmc(params: CipherParams, x):
+    """Launch the kernel on :func:`kernel_operands`; returns a new
+    row-major (lanes, n) int64 tensor."""
+    build.require_cuda(x, "states", torch.int64, (x.shape[0], params.n))
+    out = torch.empty_like(x)
+    if not x.numel():
+        return out
     q = params.mod.q
     lib = build.library()
-    err = lib.repro_mrmc(v, planes.data_ptr(), out.data_ptr(),
-                         planes.shape[1], q, (1 << 64) // q,
-                         build.stream_handle(planes.device))
+    err = lib.repro_mrmc(params.v, x.data_ptr(), out.data_ptr(),
+                         x.shape[0] * params.branches, q, (1 << 64) // q,
+                         build.stream_handle(x.device))
     build.check(err, "mrmc kernel")
     build.count_launch("mrmc")
     return out
-
-
-def lane_major_states(params: CipherParams, x):
-    """(lanes, n) states -> contiguous (v·v, lanes·branches) int32."""
-    lanes, n = x.shape
-    if n != params.n:
-        raise ValueError(f"state width {n} != n={params.n}")
-    t = params.v * params.v
-    return x.reshape(lanes, params.branches, t).permute(2, 0, 1) \
-        .reshape(t, -1).to(torch.int32).contiguous()
 
 
 def mrmc_kernel_apply(params: CipherParams, x):
@@ -47,7 +49,4 @@ def mrmc_kernel_apply(params: CipherParams, x):
     output."""
     if not x.is_cuda:
         return mrmc_ref(params, x)
-    lanes, n = x.shape
-    out = launch_mrmc(params, lane_major_states(params, x))
-    return out.to(torch.int64).reshape(-1, lanes, params.branches) \
-        .permute(1, 2, 0).reshape(lanes, n)
+    return launch_mrmc(params, kernel_operands(params, x))

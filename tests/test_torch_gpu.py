@@ -34,7 +34,11 @@ from repro_torch.kernels.keystream.ops import (  # noqa: E402
     launch_keystream,
 )
 from repro_torch.kernels.keystream.ref import keystream_ref  # noqa: E402
-from repro_torch.kernels.mrmc.ops import mrmc_kernel_apply  # noqa: E402
+from repro_torch.kernels.mrmc.ops import (  # noqa: E402
+    kernel_operands as mrmc_operands,
+    launch_mrmc,
+    mrmc_kernel_apply,
+)
 from repro_torch.kernels.mrmc.ref import mrmc_ref  # noqa: E402
 from repro_torch.serve.hhe_loop import HHERequest, HHEServer  # noqa: E402
 
@@ -127,10 +131,61 @@ def test_aes_xof_kernel_matches_plain(cuda, n_words):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", PRESETS)
 def test_mrmc_kernel_matches_plain(cuda, name):
+    """At lane counts that cut a thread block's group of states."""
     p = get_params(name)
     x = torch.as_tensor(np.random.default_rng(2).integers(
-        0, p.mod.q, size=(4096, p.n)), device=cuda)
-    _exact(mrmc_kernel_apply(p, x), mrmc_ref(p, x))
+        0, p.mod.q, size=(max(LANE_COUNTS), p.n)), device=cuda)
+    for lanes in LANE_COUNTS:
+        _exact(mrmc_kernel_apply(p, x[:lanes]), mrmc_ref(p, x[:lanes]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS)
+@pytest.mark.parametrize("fill", ["zeros", "q-1"])
+def test_mrmc_kernel_edge_values(cuda, name, fill):
+    p = get_params(name)
+    value = 0 if fill == "zeros" else p.mod.q - 1
+    for lanes in LANE_COUNTS:
+        x = torch.full((lanes, p.n), value, dtype=torch.int64, device=cuda)
+        _exact(mrmc_kernel_apply(p, x), mrmc_ref(p, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hera-128a", "rubato-128m", "pasta-128l"])
+def test_mrmc_kernel_reads_states_in_place(cuda, name):
+    """One launch on the caller's own storage: the only allocation is the
+    output, which does not alias the input."""
+    p = get_params(name)
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, p.mod.q, size=(1000, p.n)), device=cuda)
+    assert mrmc_operands(p, x).data_ptr() == x.data_ptr()
+    before = build.LAUNCHES["mrmc"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    y = mrmc_kernel_apply(p, x)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mrmc"] == before + 1
+    assert torch.cuda.max_memory_allocated(cuda) - base == \
+        torch.cuda.memory_allocated(cuda) - base >= y.numel() * 8
+    assert y.dtype == torch.int64 and y.shape == x.shape
+    assert y.is_contiguous() and y.data_ptr() != x.data_ptr()
+    _exact(y, mrmc_ref(p, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rubato-128s", "pasta-128s"])
+def test_mrmc_kernel_strided_input(cuda, name):
+    """A column slice of a wider tensor is copied once into contiguous
+    states and gives the plain version's words."""
+    p = get_params(name)
+    wide = torch.as_tensor(np.random.default_rng(4).integers(
+        0, p.mod.q, size=(1000, 3 * p.n)), device=cuda)
+    view = wide[:, p.n:2 * p.n]
+    assert not view.is_contiguous()
+    _exact(mrmc_kernel_apply(p, view), mrmc_ref(p, view.contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        launch_mrmc(p, view)
 
 
 CASES = [(name, variant, reduction, with_noise)

@@ -43,7 +43,25 @@ Phases (any failure exits non-zero; nothing is caught):
 7b. the threefry producer (hera-128a, pasta-128l on threefry) against the
    JAX reference's digests, the ``cuda`` engine on its constants against
    the ``ref`` engine, both producers timed per window, and the ``cached``
-   producer's hit and rotation miss.
+   producer's hit and rotation miss;
+8. the tuned path: ``autotune`` at window 4096 and 64 sessions for
+   hera-128a and pasta-128l over the default grid (every candidate's p50,
+   the winner, the phase's seconds and peak memory printed), the plan
+   reloaded and a second ``autotune`` a cache hit that times nothing,
+   "auto" resolving to the plan's producer and engine, and
+   ``HHEServer(plan=)`` serving the phase-5 mix word for word as the
+   untuned phase-5 server, launches counted as their own path; then an
+   ordering lap (``ref`` and ``cuda`` engines, 256 lanes, a cache of its
+   own) held against the cost model (a finding, not a check), beside the
+   eager dispatch cost measured here;
+9. transciphering 4096 blocks of hera-128a, rubato-128l and pasta-128l
+   (depths 10 / 2 / 4, slots recovered, the circuit's keystream against
+   the ``cuda`` engine's), and a ``FarmEncryptedSource`` on the phase-8
+   plan streaming 3 steps of 16 x 4096 tokens, each equal to
+   ``encrypt_tokens`` and decrypting back exactly.
+
+The tuner's cache is a fresh file in a temporary directory for the whole
+run, so no cache left on the machine steers any phase.
 
 The last three lines of standard output are the kernel JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -52,10 +70,14 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -394,7 +416,12 @@ def _requests(rng, sessions: int):
     return [reqs[i] for i in order]
 
 
-def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
+def serve_preset(dev, name: str, matrix_depth: int, seed: int,
+                 plan=None):
+    """Serve the request mix through one ``HHEServer`` (phase 5; with
+    ``plan``, the tuned server of phase 8 on the same seed, so the same
+    pool and requests).  Returns the metrics and every response's
+    (counters, result) in submission order."""
     import torch
 
     from repro_torch.core.convert import batch_from_reference
@@ -407,20 +434,23 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
     cb.add_sessions(SESSIONS)
     p = cb.params
     q, l = p.mod.q, p.l
-    srv = HHEServer(cb, window=WINDOW, engine="auto", depth=2,
-                    matrix_depth=matrix_depth, deadline_s=0.05)
+    if plan is None:
+        srv = HHEServer(cb, window=WINDOW, engine="auto", depth=2,
+                        matrix_depth=matrix_depth, deadline_s=0.05)
+    else:
+        srv = HHEServer(cb, plan=plan, deadline_s=0.05)
     check(srv.farm.engine.name == ("cuda" if dev.type == "cuda" else "ref"),
           f"{name}: the server's engine is {srv.farm.engine.name}")
     # the client: same key and nonces, plain engine on the card
     client = batch_from_reference(
         name, cb.key.cpu().numpy(),
         np.stack([s.nonce for s in cb.sessions]), device=dev, engine="ref")
-    plan = _requests(rng, SESSIONS)
+    mix = _requests(rng, SESSIONS)
     # predict every request's counters (no rotation at this volume) and
     # prepare client-side payloads before the main path starts
     cursor = [0] * SESSIONS
     prepared = []
-    for sid, op, blocks in plan:
+    for sid, op, blocks in mix:
         ctrs = np.arange(cursor[sid], cursor[sid] + blocks)
         cursor[sid] += blocks
         sids = np.full(blocks, sid)
@@ -457,9 +487,11 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
     launches = dict(build.LAUNCHES)              # main path ends
     stats = srv.latency_stats()
 
+    lanes = sum(b for _, _, b, *_ in prepared)
     check(len(responses) == len(prepared), f"{name}: responses missing")
     check(stats["fill_fires"] >= 4 and stats["deadline_fires"] >= 1,
-          f"{name}: want >= 4 full windows and a deadline fire, got {stats}")
+          f"{name}: want >= 4 full windows and a deadline fire for the "
+          f"part window, got {stats}")
     for k in MAIN_PATH:
         check(launches[k] > 0, f"{name}: kernel {k} not launched")
     sampled = []
@@ -497,9 +529,10 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
     got = np.stack([sampled[i][2] for i in pick]).astype(np.int64)
     check(np.array_equal(got, want), f"{name}: sampled lanes vs ref engine")
 
-    lanes = sum(b for _, _, b, *_ in prepared)
     wl = np.asarray(srv.window_latencies) * 1e3
     out = {
+        "window": srv.window,
+        "plan": None if plan is None else plan.to_json(),
         "requests": len(prepared), "lanes": lanes,
         "windows": stats["windows_served"],
         "fill_fires": stats["fill_fires"],
@@ -513,7 +546,7 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int) -> dict:
         "sampled_lanes_checked": int(len(pick)),
     }
     log(f"  {name}: {json.dumps(out)}")
-    return out
+    return out, [(r.block_ctrs, r.result) for r in responses]
 
 
 def window_breakdown(dev, name: str, matrix_depth: int, seed: int) -> dict:
@@ -1056,6 +1089,350 @@ def producers_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the tuned path
+# ---------------------------------------------------------------------------
+TUNED_PRESETS = (("hera-128a", 0), ("pasta-128l", 2))   # (name, phase-5 row)
+ORDERING_LANES = 256
+
+
+DISPATCH_SAMPLES = 9
+
+
+def eager_dispatch_s(dev, n: int = 2000,
+                     samples: int = DISPATCH_SAMPLES) -> list:
+    """Seconds per eager PyTorch launch from the host, ``samples`` times:
+    each sample is ``n`` one-launch adds on a 16-word int64 tensor, host
+    clock to the last one done (the per-call-site cost the cost model
+    charges the ``ref`` engine)."""
+    import torch
+
+    x = torch.zeros(16, dtype=torch.int64, device=dev)
+    for _ in range(200):
+        x = x + 1
+    out = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            x = x + 1
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) / n)
+    return out
+
+
+# past MAX_ENTRIES (64); 2048 lanes, since 64 entries of 4096 would hold
+# 70 GB of the card's 80
+CACHED_PRESET, CACHED_WINDOWS, CACHED_LANES = "pasta-128l", 68, 2048
+
+
+def cached_plan_memory(dev, plan) -> dict:
+    """The device memory that serving from a ``cached`` plan keeps: the
+    tuned pasta-128l plan with its producer set to ``cached``, matrix_depth
+    1 (one "all" entry a window) and ``CACHED_LANES`` a window, serving
+    ``CACHED_WINDOWS`` full windows of fresh counters.  Serving never
+    repeats a (session, counter) window, so every produce misses and the
+    cache fills to ``CachedProducer.MAX_ENTRIES`` entries of int64
+    planes."""
+    import torch
+
+    from repro_torch.core.cipher import CipherBatch
+    from repro_torch.serve.hhe_loop import HHERequest, HHEServer
+
+    cplan = dataclasses.replace(plan, producer="cached", matrix_depth=1,
+                                window=CACHED_LANES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cb = CipherBatch(CACHED_PRESET, seed=800, device=dev)
+    cb.add_sessions(SESSIONS)
+    srv = HHEServer(cb, plan=cplan)
+    check(cb.producer.name == "cached", "the cached plan's producer")
+    p = cb.params
+    entry_bytes = cplan.window * 8 * (p.n_round_constants + p.n_noise
+                                      + p.n_matrix_constants)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for i in range(CACHED_WINDOWS):
+        srv.submit(HHERequest(i % SESSIONS, op="keystream",
+                              blocks=cplan.window))
+        srv.pop_completed()
+    srv.flush()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    stats = cb.producer.cache_stats()
+    check(stats["hits"] == 0 and stats["misses"] == CACHED_WINDOWS
+          and stats["entries"] == cb.producer.max_entries,
+          f"cached serving: {stats}")
+    out = {"preset": CACHED_PRESET, "plan": cplan.to_json(),
+           "windows": CACHED_WINDOWS, **stats,
+           "entry_bytes": entry_bytes,
+           "entries_bytes": entry_bytes * stats["entries"],
+           "held_bytes": held,
+           "at_4096_lanes_bytes": entry_bytes * 4096 // cplan.window
+           * stats["entries"]}
+    log(f"  cached plan memory: {CACHED_WINDOWS} windows of "
+        f"{cplan.window} lanes, {stats['entries']} entries of "
+        f"{entry_bytes / 1e9:.3f} GB = {out['entries_bytes'] / 1e9:.2f} GB "
+        f"computed, {held / 1e9:.2f} GB held on the card "
+        f"(memory_allocated); at 4096 lanes "
+        f"{out['at_4096_lanes_bytes'] / 1e9:.2f} GB")
+    del srv, cb
+    torch.cuda.empty_cache()
+    return out
+
+
+def tuned_phase(dev, cache: Path, untuned: dict, served: dict) -> dict:
+    """Autotune, reload, "auto", and serving from the plan, per preset of
+    TUNED_PRESETS (``untuned``/``served``: phase 5's metrics and
+    responses by preset); then the ordering lap."""
+    import torch
+
+    from repro_torch.analysis.cost import (
+        MachineModel,
+        validate_measured_ordering,
+    )
+    from repro_torch.core.engine import resolve_engine
+    from repro_torch.core.params import get_params
+    from repro_torch.core.producer import make_producer
+    from repro_torch.core.tuner import (
+        autotune,
+        candidate_plans,
+        load_measurements,
+        load_plan,
+    )
+    from repro_torch.kernels import build
+
+    out = {"plans": {}}
+    for name, row in TUNED_PRESETS:
+        p = get_params(name)
+        grid = candidate_plans(p, WINDOW, device=dev)
+        log(f"  {name}: grid of {len(grid)} candidates at window {WINDOW}, "
+            f"{SESSIONS} sessions")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        plan = autotune(p, WINDOW, sessions=SESSIONS, device=dev,
+                        cache_path=cache)
+        tune_s = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        rows = load_measurements(p, WINDOW, cache_path=cache, device=dev)
+        check(len(rows) == len(grid), f"{name}: {len(rows)} measurements")
+        for r in rows:
+            log(f"    p50 {r['p50_ms']:9.3f} ms  {json.dumps(r)}")
+        # reload, and a second autotune that must not time anything
+        check(load_plan(p, WINDOW, cache_path=cache, device=dev) == plan,
+              f"{name}: reloaded plan differs")
+        stamp = json.loads(cache.read_text())["plans"]
+        t = time.perf_counter()
+        again = autotune(p, WINDOW, sessions=SESSIONS, device=dev,
+                         cache_path=cache)
+        hit_s = time.perf_counter() - t
+        check(again == plan and json.loads(cache.read_text())["plans"]
+              == stamp and hit_s < 1.0,
+              f"{name}: second autotune was no cache hit ({hit_s:.3f} s)")
+        # "auto" through the cache (the same file the environment names)
+        got_prod = make_producer("auto", p, device=dev).name
+        got_eng = resolve_engine("auto", dev, p)
+        check((got_prod, got_eng) == (plan.producer, plan.engine),
+              f"{name}: auto resolved to {got_prod}/{got_eng}, plan "
+              f"{plan.producer}/{plan.engine}")
+        # serve the phase-5 mix from the plan, as its own main path
+        build.reset_launches()
+        metrics, results = serve_preset(dev, name, 1, seed=100 + row,
+                                        plan=plan)
+        want = served[name]
+        check(len(results) == len(want), f"{name}: tuned response count")
+        for (c1, r1), (c2, r2) in zip(results, want):
+            check(np.array_equal(c1, c2) and r1.dtype == r2.dtype
+                  and np.array_equal(r1, r2),
+                  f"{name}: tuned response differs from the untuned one")
+        for k in MAIN_PATH:
+            check(metrics["launches"][k] > 0,
+                  f"{name}: kernel {k} not launched on the tuned path")
+        base = untuned[name]
+        out["plans"][name] = {
+            "plan": plan.to_json(), "grid": len(grid), "tune_s": tune_s,
+            "cache_hit_s": hit_s, "peak_mem_gb": peak_gb,
+            "winner_p50_ms": min(r["p50_ms"] for r in rows),
+            "measurements": rows, "served": metrics,
+            "untuned": {k: base[k] for k in (
+                "window_p50_ms", "window_p99_ms", "request_p50_ms",
+                "request_p99_ms", "keystream_words_per_s")}}
+        log(f"  {name}: winner {plan.describe()} "
+            f"(p50 {out['plans'][name]['winner_p50_ms']:.3f} ms) after "
+            f"{tune_s:.1f} s, peak {peak_gb:.2f} GB; cache hit in "
+            f"{hit_s * 1e3:.1f} ms; tuned window p50/p99 "
+            f"{metrics['window_p50_ms']:.2f}/{metrics['window_p99_ms']:.2f} "
+            f"ms vs untuned {base['window_p50_ms']:.2f}/"
+            f"{base['window_p99_ms']:.2f}; words/s "
+            f"{metrics['keystream_words_per_s']:.4g} vs "
+            f"{base['keystream_words_per_s']:.4g}; every response equal")
+
+    out["cached_memory"] = cached_plan_memory(
+        dev, load_plan(CACHED_PRESET, WINDOW, cache_path=cache, device=dev))
+
+    # the ordering lap: both engines, its own cache
+    dispatch_samples = eager_dispatch_s(dev)
+    dispatch = float(np.median(dispatch_samples))
+    model = MachineModel.for_backend(dev)
+    ordering_cache = cache.with_name("ordering.json")
+    t = time.perf_counter()
+    autotune("hera-128a", ORDERING_LANES, engines=("ref", "cuda"),
+             sessions=8, device=dev, cache_path=ordering_cache)
+    rows = load_measurements("hera-128a", ORDERING_LANES,
+                             cache_path=ordering_cache, device=dev)
+    out["ordering"] = {"lanes": ORDERING_LANES, "candidates": len(rows),
+                       "seconds": time.perf_counter() - t,
+                       "eager_dispatch_s": dispatch,
+                       "eager_dispatch_samples_s": dispatch_samples,
+                       "model_dispatch_s": model.dispatch_s}
+    for label, m in (("committed model", model),
+                     ("measured dispatch",
+                      dataclasses.replace(model, dispatch_s=dispatch))):
+        rep = validate_measured_ordering(get_params("hera-128a"), rows,
+                                         machine=m)
+        out["ordering"][label] = {
+            "ok": rep.ok, "measured_per_lane_ms": rep.measured_per_lane_ms,
+            "predicted_per_lane_ms": rep.predicted_per_lane_ms}
+        log(f"  cost model ordering ({label}, dispatch "
+            f"{m.dispatch_s * 1e6:.2f} us):\n" + rep.render())
+    log(f"  eager dispatch: median {dispatch * 1e6:.3f} us per launch of "
+        f"{len(dispatch_samples)} samples, "
+        f"{min(dispatch_samples) * 1e6:.3f}-"
+        f"{max(dispatch_samples) * 1e6:.3f} us (the cuda MachineModel "
+        f"carries {model.dispatch_s * 1e6:.3f} us)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: transciphering and the encrypted source
+# ---------------------------------------------------------------------------
+# (preset, depth, slot tolerance): the reference test's tolerances
+# (tests/test_ciphers.py), half a fixed-point step plus Rubato's noise
+TRANSCIPHER = (("hera-128a", 10, 1 / 2048),
+               ("rubato-128l", 2, 10 * 1.6 / 1024 + 1 / 2048),
+               ("pasta-128l", 4, 1 / 2048))
+TOKEN_BATCH, TOKEN_SEQ, TOKEN_STEPS = 16, 4096, 3
+# transciphering draws its constants through the `aes` producer; the
+# circuit itself is plain PyTorch and launches no keystream kernel
+TRANSCIPHER_PATH = ("aes_xof",)
+
+
+class TokenSource:
+    """A numpy token source: ``batch`` sequences of ``seq_len`` tokens a
+    step, drawn from a seed per step."""
+
+    batch, seq_len = TOKEN_BATCH, TOKEN_SEQ
+
+    def __init__(self, vocab: int, seed: int):
+        self.vocab, self.seed = vocab, seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        return {"tokens": rng.integers(0, self.vocab, (self.batch,
+                                                       self.seq_len))
+                .astype(np.int32)}
+
+
+def transcipher_phase(dev, plan) -> dict:
+    """Transcipher 4096 blocks per preset, and stream the encrypted source
+    on ``plan`` (hera-128a); launches counted per path."""
+    import torch
+
+    from repro_torch.core.cipher import CipherBatch, make_cipher
+    from repro_torch.core.transcipher import (
+        evaluate_decryption_circuit,
+        transcipher,
+    )
+    from repro_torch.data.encrypted import (
+        FarmEncryptedSource,
+        encrypt_tokens,
+        make_decryptor,
+    )
+    from repro_torch.kernels import build
+
+    out = {"launches": {}}
+    blocks = WINDOW
+    counted = {k: 0 for k in SOURCES}
+    for i, (name, depth, tol) in enumerate(TRANSCIPHER):
+        ci = make_cipher(name, seed=500 + i, device=dev,
+                         engine="cuda" if dev.type == "cuda" else "ref")
+        p = ci.params
+        ctrs = np.arange(blocks)
+        m = np.random.default_rng(600 + i).uniform(
+            -4, 4, (blocks, p.l)).astype(np.float32)
+        ct = ci.encrypt(m, ctrs)
+        torch.cuda.synchronize()
+        build.reset_launches()                   # main path starts
+        t = time.perf_counter()
+        slots, got_depth = transcipher(ci, ct, ctrs)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(build.LAUNCHES)          # main path ends
+        for k in SOURCES:
+            counted[k] += launches[k]
+        for k in TRANSCIPHER_PATH:
+            check(launches[k] > 0,
+                  f"{name}: kernel {k} not launched by transcipher")
+        err = float((slots.cpu() - torch.from_numpy(m)).abs().max())
+        check(got_depth == depth, f"{name}: depth {got_depth} != {depth}")
+        if p.n_noise:
+            check(err < tol, f"{name}: slot error {err} >= {tol}")
+        else:
+            # no noise: the slots are the encoded fixed-point values
+            # exactly, within half a grid step of the message (65 k slots
+            # meet rounding ties at exactly that half step)
+            check(torch.equal(slots, ci.decode(ci.encode(m, 1024.0),
+                                               1024.0)) and err <= tol,
+                  f"{name}: slots off the encoded grid (max error {err})")
+        z, _ = evaluate_decryption_circuit(ci, ctrs)
+        engine_z = ci.keystream(ctrs)
+        if p.n_noise:
+            noise = ci.round_constant_stream(ctrs)["noise"]
+            check(torch.equal(p.mod.add(z, p.mod.from_signed(noise)),
+                              engine_z) and not torch.equal(z, engine_z),
+                  f"{name}: circuit + noise plane != the cuda engine")
+        else:
+            check(torch.equal(z, engine_z),
+                  f"{name}: circuit keystream != the cuda engine's")
+        out[name] = {"blocks": blocks, "depth": got_depth,
+                     "max_slot_err": err, "tolerance": tol,
+                     "transcipher_ms": t_ms,
+                     "launches": {k: launches[k] for k in SOURCES}}
+        log(f"  transcipher {name}: {json.dumps(out[name])}")
+    out["launches"]["transcipher"] = counted
+
+    cb = CipherBatch("hera-128a", seed=700, device=dev)
+    src = TokenSource(vocab=50000, seed=701)
+    fsrc = FarmEncryptedSource(src, cb, plan=plan)
+    check(fsrc.blocks_per_batch() == WINDOW, "4096 blocks a step")
+    dec = make_decryptor(fsrc.cipher)
+    build.reset_launches()
+    t = time.perf_counter()
+    steps = []
+    for step, enc in enumerate(fsrc.stream(n_steps=TOKEN_STEPS)):
+        torch.cuda.synchronize()
+        steps.append(enc)
+    stream_s = time.perf_counter() - t
+    out["launches"]["encrypted_source"] = dict(build.LAUNCHES)
+    check(len(steps) == TOKEN_STEPS, "encrypted source steps")
+    for step, enc in enumerate(steps):
+        toks = src.batch_at(step)["tokens"]
+        want = encrypt_tokens(fsrc.cipher, toks, step * WINDOW)
+        check(torch.equal(enc["ct"], want["ct"])
+              and int(enc["base_ctr"]) == int(want["base_ctr"]),
+              f"encrypted source step {step} != encrypt_tokens")
+        back = dec(enc)["tokens"].cpu().numpy()
+        check(np.array_equal(back, toks), f"step {step}: decryption")
+    out["encrypted_source"] = {
+        "plan": plan.to_json(), "steps": TOKEN_STEPS,
+        "tokens_per_step": TOKEN_BATCH * TOKEN_SEQ,
+        "ms_per_step": stream_s * 1e3 / TOKEN_STEPS}
+    log(f"  encrypted source: {json.dumps(out['encrypted_source'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -1307,13 +1684,13 @@ def mrmc_bandwidth(times: dict) -> dict:
             "prev_share_of_bound": b_ms / prev if prev else None}
 
 
-def kernel_entries(rows: dict, times: dict, launches: dict,
-                   launches_tcp: dict, errors: Errors,
+def kernel_entries(rows: dict, times: dict, paths: dict, errors: Errors,
                    with_baseline: bool) -> list:
     """The ``kernels`` JSON entries: each kernel's head-preset row from
-    :func:`time_kernels`, its times from :func:`merge_times`, the main
-    paths' launch counts (``HHEServer`` in phase 5 plus the TCP plane's
-    worker thread in phase 7; each path's own beside) and the largest
+    :func:`time_kernels`, its times from :func:`merge_times`, the launch
+    counts of every main path (``paths``: name -> counts; the phase-5
+    ``HHEServer``, the TCP plane's worker thread in phase 7, the tuned
+    server of phase 8 and the phase-9 paths), their sum, and the largest
     error seen."""
     head = times[HEAD]
     kernels = []
@@ -1331,9 +1708,8 @@ def kernel_entries(rows: dict, times: dict, launches: dict,
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": launches[name] + launches_tcp[name],
-            "launches_by_path": {"hhe_server": launches[name],
-                                 "tcp_plane": launches_tcp[name]},
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {k: c[name] for k, c in paths.items()},
             "on_main_path": on_path,
             "note": ("" if on_path else
                      "off the main path: its device code runs inside the "
@@ -1389,6 +1765,21 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.tcp_client is not None:
         return tcp_client_child(*args.tcp_client)
+    # the tuner's cache: a fresh file for this run only, so no cache left
+    # on the machine steers "auto" in any phase
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-tuner-"))
+    cache = tmp / "plans.json"
+    os.environ["REPRO_TORCH_TUNER_CACHE"] = str(cache)
+    try:
+        return run(args, cache)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run(args, cache: Path) -> int:
+    import torch
+
+    from repro_torch.core.tuner import load_plan
     from repro_torch.kernels import build
 
     baseline = args.baseline
@@ -1420,11 +1811,12 @@ def main(argv) -> int:
 
     t = time.perf_counter()
     log("[5] serving (main path)")
-    serving = {}
+    serving, served = {}, {}
     launches = {k: 0 for k in SOURCES}
     launches_tcp = {k: 0 for k in SOURCES}
     for i, (name, mdepth) in enumerate(SERVE_PRESETS):
-        serving[name] = serve_preset(dev, name, mdepth, seed=100 + i)
+        serving[name], served[name] = serve_preset(dev, name, mdepth,
+                                                   seed=100 + i)
         for k, v in serving[name]["launches"].items():
             launches[k] += v
     log(json.dumps({"serving": serving}))
@@ -1471,12 +1863,30 @@ def main(argv) -> int:
     log("[7b] the threefry and cached producers")
     log(json.dumps({"producers": producers_phase(dev)}))
     phases["producers_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log("[8] the tuned path: autotune, reload, auto, serving from the plan")
+    tuned = tuned_phase(dev, cache, serving, served)
+    log(json.dumps({"tuned": tuned}))
+    launches_tuned = {k: sum(v["served"]["launches"][k]
+                             for v in tuned["plans"].values())
+                      for k in SOURCES}
+    phases["tuned_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log("[9] transciphering and the encrypted source")
+    hera_plan = load_plan("hera-128a", WINDOW, cache_path=cache, device=dev)
+    trans = transcipher_phase(dev, hera_plan)
+    log(json.dumps({"transcipher": trans}))
+    phases["transcipher_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({"phases": phases}))
 
     rows["mrmc"]["bandwidth"] = bw
-    kernels = kernel_entries(rows, times, launches, launches_tcp, errors,
+    paths = {"hhe_server": launches, "tcp_plane": launches_tcp,
+             "tuned_server": launches_tuned, **trans["launches"]}
+    kernels = kernel_entries(rows, times, paths, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -108,16 +108,21 @@ class Cipher:
         return self.keystream_from_constants(c["rc"], c["noise"],
                                              c.get("mats"))
 
+    def encode(self, m_real, delta: float):
+        return encode_fixed(self.params.mod, m_real, delta).to(self.device)
+
+    def decode(self, m_q, delta: float):
+        return decode_fixed(self.params.mod, m_q, delta)
+
     def encrypt(self, m_real, block_ctrs, delta: float = 1024.0,
                 constants=None):
         z = self.keystream(block_ctrs, constants)
-        mod = self.params.mod
-        return mod.add(encode_fixed(mod, m_real, delta).to(z.device), z)
+        return self.params.mod.add(self.encode(m_real, delta), z)
 
     def decrypt(self, c, block_ctrs, delta: float = 1024.0, constants=None):
         z = self.keystream(block_ctrs, constants)
-        mod = self.params.mod
-        return decode_fixed(mod, mod.sub(as_int64(c, z.device), z), delta)
+        return self.decode(self.params.mod.sub(as_int64(c, z.device), z),
+                           delta)
 
 
 def make_cipher(name: str, key=None, nonce=None, seed: int = 0,
@@ -252,6 +257,9 @@ class CipherBatch:
         self._mat_host[session_id] = self.producer.session_material(s.nonce)
         self._tables = None
         return s
+
+    def __len__(self) -> int:
+        return len(self.sessions)
 
     def session_cipher(self, session_id: int) -> Cipher:
         """Single-stream view of one session (the bit-exactness oracle)."""

@@ -10,10 +10,16 @@ keystream is a registered engine with declared capabilities:
 
 "auto" resolves by the device the caller asked for: ``cuda`` for a CUDA
 device, ``ref`` for an explicit CPU — never by what happens to be
-installed.  All engines are bit-exact with ``ref``.
+installed.  With a ``params`` context it first consults the tuner's
+measured `StreamPlan` for (preset, this host and device), which can pick
+only an engine that runs on that device and is never the oracle ``ref``
+on a card.  All engines are bit-exact with ``ref``.
 
     eng = make_engine("auto", params, key, device="cuda")
     z = eng.keystream_from_constants(rc, noise, mats)   # or eng(constants)
+
+``python -m repro_torch.core.engine [--device cpu]`` prints the registry
+table.
 """
 
 from __future__ import annotations
@@ -125,11 +131,51 @@ def registered_engines() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def resolve_engine(spec: str, device) -> str:
-    """THE single place engine selection lives: "auto" is ``cuda`` on a
-    CUDA device and ``ref`` on an explicit CPU device."""
+def engine_caps() -> Dict[str, EngineCaps]:
+    """Capability report for every registered engine."""
+    return {name: cls.query_caps() for name, cls in sorted(_REGISTRY.items())}
+
+
+#: Correctness oracles: never an "auto" choice on a card, never a tuner
+#: candidate unless asked for by name.
+ORACLES = ("ref",)
+
+
+def _tuned_engine(params: Optional[CipherParams], device: torch.device,
+                  fallback: str) -> Optional[str]:
+    """The engine of the tuner's cached plan for (preset, this host and
+    device), or None: no ``params`` context, no registered engine other
+    than ``fallback`` that a plan could name on this device (the cache
+    could not change the answer, so it is not read), no valid plan
+    (`load_plan` trusts only engines available on ``device``), or the
+    oracle on a card.  Looked up with lanes=None (engines bind
+    lane-agnostic): the largest tuned lane count decides.  Lane-exact plan
+    application is the ``plan=`` path of the farm and server."""
+    if params is None:
+        return None
+    if not any(name != fallback
+               and device.type in cls.query_caps().device_types
+               and not (device.type == "cuda" and name in ORACLES)
+               for name, cls in _REGISTRY.items()):
+        return None
+    from repro_torch.core.tuner import load_plan
+
+    plan = load_plan(params, lanes=None, device=device)
+    if plan is None or (device.type == "cuda" and plan.engine in ORACLES):
+        return None
+    return plan.engine
+
+
+def resolve_engine(spec: str, device, params: Optional[CipherParams] = None
+                   ) -> str:
+    """THE single place engine selection lives: "auto" is the tuned
+    plan's engine when ``params`` is given and a valid plan for this
+    device is cached (`_tuned_engine`), else ``cuda`` on a CUDA device and
+    ``ref`` on an explicit CPU device."""
     if spec == "auto":
-        spec = "cuda" if torch.device(device).type == "cuda" else "ref"
+        dev = torch.device(device)
+        fallback = "cuda" if dev.type == "cuda" else "ref"
+        spec = _tuned_engine(params, dev, fallback) or fallback
     if spec not in _REGISTRY:
         raise ValueError(
             f"unknown keystream engine {spec!r}; registered engines: "
@@ -164,7 +210,7 @@ def make_engine(spec: EngineSpec, params: CipherParams, key, *, device=None,
                 f"reduction schedule; requested {reduction!r}")
         return spec
     dev = resolve_device(device)
-    name = resolve_engine(spec, dev)
+    name = resolve_engine(spec, dev, params)
     cls = _REGISTRY[name]
     caps = cls.query_caps()
     if not caps.available:
@@ -219,3 +265,47 @@ class CudaEngine(KeystreamEngine):
         return keystream_kernel_apply(
             self.params, self.key, rc, noise, variant=self.variant,
             mats=mats, reduction=self.reduction)
+
+
+# ==========================================================================
+# Introspection CLI: `python -m repro_torch.core.engine`
+# ==========================================================================
+def describe(device=None) -> str:
+    """The engine registry as a table: one row per backend, with
+    availability (and the reason when unavailable), device types and
+    schedule variants, and what "auto" resolves to on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    rows = [("engine", "available", "devices", "variants (pref)",
+             "description / reason")]
+    for name, c in engine_caps().items():
+        variants = "/".join(c.schedule_variants) + f" ({c.preferred_variant})"
+        detail = c.description if c.available else f"UNAVAILABLE: {c.reason}"
+        rows.append((name, "yes" if c.available else "no",
+                     "/".join(c.device_types), variants, detail))
+    widths = [max(len(r[i]) for r in rows) for i in range(4)]
+    lines = []
+    for i, r in enumerate(rows):
+        lines.append("  ".join(r[j].ljust(widths[j]) for j in range(4))
+                     + "  " + r[4])
+        if i == 0:
+            lines.append("  ".join("-" * w for w in widths) + "  " + "-" * 24)
+    lines.append("")
+    lines.append(f"device: {dev}   auto resolves to: "
+                 f"{resolve_engine('auto', dev)!r} (without a tuned plan)")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the keystream engine registry")
+    ap.add_argument("--device", default=None,
+                    help="device \"auto\" resolves for (default: the card)")
+    args = ap.parse_args(argv)
+    print(describe(args.device))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

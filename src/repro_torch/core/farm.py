@@ -131,12 +131,32 @@ class KeystreamFarm:
     serialized).  ``matrix_depth >= 2`` produces the matrix plane of
     stream-matrix presets (PASTA) up to that many windows ahead through a
     second FIFO.
+
+    ``plan`` applies a measured :class:`repro_torch.core.tuner.StreamPlan`
+    in one shot: producer (rebound on the pool), engine, variant, depth,
+    matrix_depth and reduction mode, with any argument passed explicitly
+    taking precedence; its window becomes :attr:`window`.
     """
 
     def __init__(self, batch: CipherBatch, engine: Optional[EngineSpec] = None,
                  *, variant: Optional[str] = None, depth: Optional[int] = None,
                  matrix_depth: Optional[int] = None,
-                 reduction: Optional[str] = None):
+                 reduction: Optional[str] = None, plan=None):
+        self.plan = plan
+        self.window: Optional[int] = None
+        if plan is not None:
+            if engine is None:
+                engine = plan.engine
+            if variant is None:
+                variant = plan.variant
+            if depth is None:
+                depth = plan.depth
+            if matrix_depth is None:
+                matrix_depth = plan.matrix_depth
+            if reduction is None:
+                reduction = plan.reduction
+            self.window = plan.window
+            batch.set_producer(plan.producer)
         depth = 2 if depth is None else int(depth)
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1 (got {depth})")
@@ -211,11 +231,13 @@ class KeystreamFarm:
         return self.consume(self.produce(plan))
 
     def keystream(self, session_ids, block_ctrs, window: Optional[int] = None):
-        """Full keystream for per-lane pairs, windowed; lane order kept."""
+        """Full keystream for per-lane pairs, windowed (by the plan's window
+        when one was applied and ``window`` is None, else as one window);
+        lane order kept."""
         sid = np.asarray(session_ids, np.int64).reshape(-1)
         ctr = np.asarray(block_ctrs, np.int64).reshape(-1)
         if window is None:
-            window = sid.shape[0]
+            window = self.window or sid.shape[0]
         plans = pack_windows(sid, ctr, window)
         outs = [z[: p.valid] for p, z in self.run(plans)]
         return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]

@@ -232,13 +232,32 @@ def compatible_producers(params: CipherParams) -> Tuple[str, ...]:
     )
 
 
+def _tuned_producer(params: Optional[CipherParams],
+                    device: Optional[torch.device]) -> Optional[str]:
+    """The producer of the tuner's cached plan for (preset, this host and
+    device), or None: no ``params`` or ``device`` context, or no valid
+    plan (`load_plan` trusts only available, stream-preserving
+    producers)."""
+    if params is None or device is None:
+        return None
+    from repro_torch.core.tuner import load_plan
+
+    plan = load_plan(params, lanes=None, device=device)
+    return None if plan is None else plan.producer
+
+
 def resolve_producer(spec: Optional[str],
-                     params: Optional[CipherParams] = None) -> str:
-    """``spec`` is a producer name, None (= the preset's declared XOF) or
-    "auto".  The reference's "auto" consults its tuner's measured plan;
-    the port has no tuner yet, so "auto" is the preset's declared XOF,
-    ``params.xof``, exactly as None."""
-    if spec in (None, "auto"):
+                     params: Optional[CipherParams] = None,
+                     device=None) -> str:
+    """THE single place producer selection lives.  ``spec`` is a producer
+    name, None (= the preset's declared XOF, ``params.xof``, static) or
+    "auto" (= the tuner's measured `StreamPlan` for (preset, this host,
+    ``device``) when one is cached, else as None).  Plans are scoped to a
+    device, so a bare name lookup without ``device`` has none to consult."""
+    if spec == "auto":
+        spec = _tuned_producer(
+            params, None if device is None else torch.device(device))
+    if spec is None:
         spec = params.xof if params is not None else "aes"
     if spec not in _REGISTRY:
         raise ValueError(
@@ -267,7 +286,8 @@ def make_producer(spec: ProducerSpec, params: CipherParams, *,
                 f"producer {spec.name!r} lives on {spec.device}, not "
                 f"{device}")
         return spec
-    name = resolve_producer(spec, params)
+    device = resolve_device(device)
+    name = resolve_producer(spec, params, device)
     cls = _REGISTRY[name]
     caps = cls.query_caps()
     if not caps.available:

@@ -116,7 +116,11 @@ class HHEServer:
     device); ``depth`` sets the farm's producer→consumer FIFO depth and
     ``matrix_depth`` its matrix-plane prefetch depth (PASTA); ``variant``
     and ``reduction`` pick the schedule orientation plan and reduction
-    mode, bit-exact either way.  With ``auto_rotate`` (default),
+    mode, bit-exact either way.  ``plan`` applies a measured
+    :class:`repro_torch.core.tuner.StreamPlan` in one shot: producer,
+    engine, variant, depth, matrix_depth, reduction and (when ``window``
+    is not given) window size; explicit arguments win.  With
+    ``auto_rotate`` (default),
     a session whose counter space cannot fit an incoming request is
     rotated to a fresh nonce (pending lanes on the old nonce materialize
     first), so long-running streams survive counter exhaustion without
@@ -145,13 +149,14 @@ class HHEServer:
                  engine=None, *, variant: Optional[str] = None,
                  depth: Optional[int] = None,
                  matrix_depth: Optional[int] = None,
-                 reduction: Optional[str] = None, auto_rotate: bool = True,
+                 reduction: Optional[str] = None, plan=None,
+                 auto_rotate: bool = True,
                  fire_on_fill: bool = True,
                  deadline_s: Optional[float] = None,
                  max_pending_lanes: Optional[int] = None,
                  overload: str = "reject"):
         if window is None:
-            window = self.DEFAULT_WINDOW
+            window = plan.window if plan is not None else self.DEFAULT_WINDOW
         if window <= 0:
             raise ValueError("window must be positive")
         if overload not in OVERLOAD_POLICIES:
@@ -173,7 +178,7 @@ class HHEServer:
         self.overload = overload
         self.farm = KeystreamFarm(batch, engine=engine, variant=variant,
                                   depth=depth, matrix_depth=matrix_depth,
-                                  reduction=reduction)
+                                  reduction=reduction, plan=plan)
         # ONE long-lived pipeline: windows fired by different scheduling
         # events still overlap producer-vs-consumer across the FIFO
         self._pipe = self.farm.pipeline()

@@ -355,3 +355,68 @@ def test_card_threefry_matches_reference_digests(cuda):
     _exact(z, make_engine("ref", p, key, device=cuda)
            .keystream_from_constants(c["rc"], c["noise"], c["mats"]))
     assert cs.digest(z) == want["keystream"]
+
+
+@pytest.mark.gpu
+def test_card_autotune_serves_like_the_untuned_server(cuda, tmp_path,
+                                                      monkeypatch):
+    """A 512-lane autotune over a two-plan grid on the card, its reload,
+    "auto" resolving to it, and `HHEServer(plan=)` answering word for word
+    as the untuned server on the same pool."""
+    from repro_torch.core import tuner as T
+    from repro_torch.core.engine import resolve_engine
+    from repro_torch.core.producer import make_producer
+
+    cache = tmp_path / "plans.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(cache))
+    plan = T.autotune("hera-128a", 512, sessions=8, n_windows=2, reps=1,
+                      producers=["aes", "cached"], variants=["normal"],
+                      windows=[512], depths=[2], reductions=["lazy"],
+                      device=cuda)
+    assert plan.engine == "cuda" and plan.producer in ("aes", "cached")
+    assert T.load_plan("hera-128a", 512, device=cuda) == plan
+    assert len(T.load_measurements("hera-128a", 512, device=cuda)) == 2
+    p = get_params("hera-128a")
+    assert resolve_engine("auto", cuda, p) == "cuda"
+    assert make_producer("auto", p, device=cuda).name == plan.producer
+    results = []
+    for kw in ({"window": 512}, {"plan": plan}):
+        cb = CipherBatch("hera-128a", seed=31, device=cuda)
+        cb.add_sessions(4)
+        srv = HHEServer(cb, **kw)
+        for sid, blocks in ((0, 300), (1, 512), (2, 7), (3, 900)):
+            srv.submit(HHERequest(sid, op="keystream", blocks=blocks))
+        results.append([(r.block_ctrs, r.result) for r in
+                        sorted(srv.flush(), key=lambda r: r.seq)])
+    for (ca, za), (cb_, zb) in zip(*results):
+        np.testing.assert_array_equal(ca, cb_)
+        np.testing.assert_array_equal(za, zb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,depth,tol", [
+    ("hera-128a", 10, 1 / 2048),
+    ("rubato-128l", 2, 10 * 1.6 / 1024 + 1 / 2048),
+    ("pasta-128l", 4, 1 / 2048),
+])
+def test_card_transcipher_depth_and_slots(cuda, name, depth, tol):
+    from repro_torch.core.transcipher import transcipher
+
+    ci = make_cipher(name, seed=7, engine="cuda", device=cuda)
+    ctrs = np.arange(256)
+    m = np.random.default_rng(8).uniform(-4, 4, (256, ci.params.l)) \
+        .astype(np.float32)
+    ct = ci.encrypt(m, ctrs)
+    slots, got_depth = transcipher(ci, ct, ctrs)
+    assert got_depth == depth and slots.is_cuda
+    err = np.abs(slots.cpu().numpy() - m).max()
+    if ci.params.n_noise:
+        assert err < tol
+    else:
+        # the encoded fixed-point slots exactly; a rounding tie sits at
+        # exactly half a step
+        _exact(slots, ci.decode(ci.encode(m, 1024.0), 1024.0))
+        assert err <= tol
+    cpu = make_cipher(name, seed=7, device="cpu")
+    cpu_slots, _ = transcipher(cpu, ct.cpu(), ctrs)
+    _exact(slots.cpu(), cpu_slots)

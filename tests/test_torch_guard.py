@@ -15,11 +15,20 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import repro_torch  # noqa: E402
+from repro_torch.analysis.cost import MachineModel  # noqa: E402
 from repro_torch.core.cipher import CipherBatch, make_cipher  # noqa: E402
 from repro_torch.core.engine import make_engine, resolve_engine  # noqa: E402
 from repro_torch.core.params import get_params  # noqa: E402
 from repro_torch.core.producer import make_producer  # noqa: E402
+from repro_torch.core.transcipher import measured_depth  # noqa: E402
+from repro_torch.core.tuner import (  # noqa: E402
+    StreamPlan,
+    autotune,
+    load_plan,
+    measure_plan,
+)
 from repro_torch.crypto.xof import threefry_xof_words  # noqa: E402
+from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.serve.server import ServeClient  # noqa: E402
 from repro_torch.serve.tenants import TenantRegistry  # noqa: E402
@@ -35,7 +44,11 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"repro_torch.serve.hhe_loop", "repro_torch.serve.tenants",
-            "repro_torch.serve.server"} <= set(mods)
+            "repro_torch.serve.server", "repro_torch.core.tuner",
+            "repro_torch.core.transcipher", "repro_torch.data.encrypted",
+            "repro_torch.analysis", "repro_torch.analysis.bounds",
+            "repro_torch.analysis.lint", "repro_torch.analysis.cost",
+            "repro_torch.analysis.__main__"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -82,9 +95,18 @@ def no_cuda(monkeypatch):
     lambda: ServeClient("127.0.0.1", 1, "t"),
     lambda: resolve_device(None),
     lambda: resolve_device("cuda"),
+    lambda: autotune("hera-80", 8, cache_path=os.devnull),
+    lambda: measure_plan("hera-80", StreamPlan("aes", "ref", "normal", 8, 2),
+                         8),
+    lambda: load_plan("hera-80", 8, cache_path=os.devnull),
+    lambda: FarmEncryptedSource(None, CipherBatch("hera-80")),
+    lambda: measured_depth(get_params("hera-80")),
+    lambda: MachineModel.for_backend(),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
-        "ServeClient", "default", "cuda"])
+        "ServeClient", "default", "cuda", "autotune", "measure_plan",
+        "load_plan", "FarmEncryptedSource", "measured_depth",
+        "MachineModel"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

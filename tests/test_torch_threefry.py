@@ -223,7 +223,8 @@ def test_registry_and_caps_match_reference():
         assert TP.compatible_producers(_tf(base)) == \
             RP.compatible_producers(_tf(base, "ref")) == \
             ("cached", "threefry")
-    # no tuner in the port: "auto" is the preset's declared stream
+    # no device, so no device-scoped tuned plan: "auto" is the preset's
+    # declared stream
     assert TP.resolve_producer("auto", get_params("hera-80")) == "aes"
     assert TP.resolve_producer("auto", _tf("hera-80")) == "threefry"
     with pytest.raises(ValueError, match="unknown constants producer"):

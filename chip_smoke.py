@@ -58,7 +58,22 @@ Phases (any failure exits non-zero; nothing is caught):
    (depths 10 / 2 / 4, slots recovered, the circuit's keystream against
    the ``cuda`` engine's), and a ``FarmEncryptedSource`` on the phase-8
    plan streaming 3 steps of 16 x 4096 tokens, each equal to
-   ``encrypt_tokens`` and decrypting back exactly.
+   ``encrypt_tokens`` and decrypting back exactly;
+10. the HHE surface: ``Cipher.encrypt``/``decrypt`` on the card give the
+   JAX reference's words and floats for plaintexts outside the encodable
+   range, beyond the int32 range, infinite and NaN (hera-128a,
+   rubato-128l, pasta-128l); ``presto_keystream`` on the 10 golden
+   digests, launches counted as its own path; ``aes_ctr_keystream``
+   (FIPS-197, and 4096 blocks across the counter wrap against its plain
+   version); the ``sharded`` engine over 1 and 3 copies of the card equal
+   to the ``cuda`` engine on every preset, variant and reduction mode
+   with noise, at 1, 31, 4097 and 4096 lanes; the phase-5 server on the
+   sharded engine over 1 and 2 copies of the card (hera-128a, pasta-128l),
+   every response equal to phase 5's, launches counted as the "sharded"
+   path; the tuner's grid with and without devices, one sharded plan
+   measured and a cached one rejected without devices; and both port
+   examples run as child processes (``examples/torch_quickstart.py``,
+   ``examples/torch_keystream_farm.py --lanes 4096``), exit 0 required.
 
 The tuner's cache is a fresh file in a temporary directory for the whole
 run, so no cache left on the machine steers any phase.
@@ -417,11 +432,12 @@ def _requests(rng, sessions: int):
 
 
 def serve_preset(dev, name: str, matrix_depth: int, seed: int,
-                 plan=None):
+                 plan=None, engine: str = "auto", devices=None):
     """Serve the request mix through one ``HHEServer`` (phase 5; with
     ``plan``, the tuned server of phase 8 on the same seed, so the same
-    pool and requests).  Returns the metrics and every response's
-    (counters, result) in submission order."""
+    pool and requests; with ``engine="sharded"`` and ``devices``, the
+    sharded server of phase 10).  Returns the metrics and every
+    response's (counters, result) in submission order."""
     import torch
 
     from repro_torch.core.convert import batch_from_reference
@@ -435,11 +451,12 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int,
     p = cb.params
     q, l = p.mod.q, p.l
     if plan is None:
-        srv = HHEServer(cb, window=WINDOW, engine="auto", depth=2,
-                        matrix_depth=matrix_depth, deadline_s=0.05)
+        srv = HHEServer(cb, window=WINDOW, engine=engine, devices=devices,
+                        depth=2, matrix_depth=matrix_depth, deadline_s=0.05)
     else:
         srv = HHEServer(cb, plan=plan, deadline_s=0.05)
-    check(srv.farm.engine.name == ("cuda" if dev.type == "cuda" else "ref"),
+    rule = "cuda" if dev.type == "cuda" else "ref"
+    check(srv.farm.engine.name == (rule if engine == "auto" else engine),
           f"{name}: the server's engine is {srv.farm.engine.name}")
     # the client: same key and nonces, plain engine on the card
     client = batch_from_reference(
@@ -544,6 +561,8 @@ def serve_preset(dev, name: str, matrix_depth: int, seed: int,
         "keystream_words_per_s": lanes * l / busy,
         "launches": {k: launches[k] for k in SOURCES},
         "sampled_lanes_checked": int(len(pick)),
+        "engine": srv.farm.engine.name,
+        "devices": None if devices is None else [str(d) for d in devices],
     }
     log(f"  {name}: {json.dumps(out)}")
     return out, [(r.block_ctrs, r.result) for r in responses]
@@ -1433,6 +1452,272 @@ def transcipher_phase(dev, plan) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the HHE surface
+# ---------------------------------------------------------------------------
+# Each plaintext below fills every word of one lane at counter 0 of
+# make_cipher(name, seed=3).  ENCODE_GOLDEN holds SHA-256 digests
+# (:func:`digest`) of the JAX reference's ciphertext words and of the bit
+# patterns (int32 view) of the floats it decrypts them to, and each
+# ciphertext's first word; tests/test_torch_encode.py recomputes them from
+# the reference.  The plaintexts leave the encodable range (|m| < 16 376
+# at rubato-128l), the int32 range of round(m * 1024), or are not finite.
+ENCODE_PLAINTEXTS = (-1e6, 1e6, -1e5, 3e9, -3e9, float("nan"),
+                     float("inf"), float("-inf"), 16376.0, -16377.0)
+ENCODE_GOLDEN = {
+    "hera-128a": {
+        "ct": "612b48a657712f170a7df2993fe0bed51ce4188c1a55d137d20b0c7a0933ebc0",
+        "pt": "f620ef7cdf6d1b4bcc692a0f99fda614d16d163f8c6f5b4a9aaa4c8832be4a7a",
+        "word0": [3305308792, 789971575, 200311417, 1913455222, 2181825144,
+                  34341496, 1913455222, 2181825144, 51110520, 17571448]},
+    "rubato-128l": {
+        "ct": "976bb82654146a7e4f56196939944eb8cc1dbc6be38f95377dce907fea6238c8",
+        "pt": "49190e980c087025cec64553b40949ad6b6a4119494ab78bd560945b45a3d6cf",
+        "word0": [3275824820, 995319475, 4197424820, 2118803122, 2152341172,
+                  4857524, 2118803122, 2152341172, 21626548, 21625525]},
+    "pasta-128l": {
+        "ct": "8545c90a528e75713c6cec818964d9c3488225d77db8d6e082c2649f7f38af51",
+        "pt": "61668bc714949cf018599cc08ba8171a4c28bf38473fb72506c3f93b3bbae9eb",
+        "word0": [3314943122, 1000871057, 8680595, 2124354704, 2191459474,
+                  43975826, 2124354704, 2191459474, 60744850, 27205778]},
+}
+# the sharded engine against the cuda engine: device lists of 1 and 3
+# copies of the card, at lane counts that leave padding for 3 shards
+SHARD_COPIES = (1, 3)
+SHARD_LANE_COUNTS = (1, 31, 4097, 4096)
+# the phase-5 server on the sharded engine: (preset, matrix_depth, phase-5
+# row) over 1 and 2 copies of the card
+SHARDED_SERVE = (("hera-128a", 1, 0), ("pasta-128l", 2, 2))
+SHARDED_SERVE_COPIES = (1, 2)
+EXAMPLES = (("examples/torch_quickstart.py",),
+            ("examples/torch_keystream_farm.py", "--lanes", str(WINDOW)))
+
+
+def encode_edges(dev, name: str):
+    """The port's ciphertext words (len(ENCODE_PLAINTEXTS), l) of the edge
+    plaintexts, and the floats they decrypt to, on ``dev``."""
+    from repro_torch.core.cipher import make_cipher
+
+    c = make_cipher(name, seed=3, device=dev)
+    msg = np.repeat(np.asarray(ENCODE_PLAINTEXTS, np.float32)[:, None],
+                    c.params.l, axis=1)
+    ctrs = np.zeros(len(ENCODE_PLAINTEXTS), np.int64)
+    ct = c.encrypt(msg, ctrs)
+    return ct, c.decrypt(ct, ctrs)
+
+
+def encode_phase(dev) -> dict:
+    """Encrypt and decrypt on the card give the reference's words and
+    floats for every edge plaintext."""
+    out = {}
+    for name, want in ENCODE_GOLDEN.items():
+        ct, pt = encode_edges(dev, name)
+        check(ct.device == dev and pt.device == dev, f"{name}: device")
+        words = ct[:, 0].cpu().tolist()
+        check(words == want["word0"], f"{name}: first words {words}")
+        check(digest(ct) == want["ct"], f"{name}: ciphertext words")
+        check(digest(pt.cpu().numpy().view(np.int32)) == want["pt"],
+              f"{name}: decrypted floats")
+        out[name] = {"word0": words,
+                     "decrypted0": [float(x) for x in pt[:, 0].cpu()]}
+    log(f"  {len(ENCODE_PLAINTEXTS)} edge plaintexts x {len(out)} presets: "
+        "every word and float the reference's")
+    return out
+
+
+def presto_phase(dev) -> dict:
+    """``presto_keystream`` (producer -> fused kernel) on the 10 golden
+    digests, its launches counted as its own path; a "plain" digest of a
+    noisy preset runs the same cipher with AGN off."""
+    import torch
+
+    from repro_torch.core.cipher import Cipher, make_cipher
+    from repro_torch.core.params import get_params
+    from repro_torch.kernels import build
+    from repro_torch.kernels.keystream.ops import presto_keystream
+
+    ciphers = []
+    for (name, kind), want in sorted(GOLDEN.items()):
+        c = make_cipher(name, seed=123, device=dev)
+        if kind == "plain" and c.params.n_noise:
+            p = dataclasses.replace(get_params(name), sigma=0.0)
+            c = Cipher(p, c.key, c.nonce, device=dev)
+        ciphers.append((name, kind, want, c))
+    torch.cuda.synchronize()
+    build.reset_launches()                        # the path starts
+    zs = [presto_keystream(c, np.arange(4)) for *_, c in ciphers]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)               # the path ends
+    for (name, kind, want, _), z in zip(ciphers, zs):
+        got = hashlib.sha256(
+            z.cpu().numpy().astype("<u4").tobytes()).hexdigest()
+        check(got == want, f"presto_keystream digest {name}/{kind}")
+    for k in MAIN_PATH:
+        check(launches[k] > 0, f"presto_keystream: kernel {k} not launched")
+    log(f"  {len(zs)} golden digests through presto_keystream; launches "
+        f"{json.dumps({k: launches[k] for k in SOURCES})}")
+    return {k: launches[k] for k in SOURCES}
+
+
+def aes_ctr_phase(dev, errors: Errors) -> dict:
+    """``aes_ctr_keystream`` on the card: the FIPS-197 vector as one CTR
+    block, and 4096 blocks across the 2^32 counter wrap against its plain
+    version."""
+    from repro_torch.crypto.aes import aes128_key_expand, aes_ctr_keystream
+
+    rk = aes128_key_expand(np.arange(16, dtype=np.uint8))
+    nonce = np.array(list(bytes.fromhex("00112233445566778899aabb")),
+                     np.uint8)
+    fips = aes_ctr_keystream(rk, nonce, 0xCCDDEEFF, 1, device=dev)
+    check(fips.device == dev, "aes_ctr_keystream device")
+    check(bytes(fips.cpu().numpy()[0]).hex()
+          == "69c4e0d86a7b0430d8cdb78070b4c55a", "aes_ctr_keystream FIPS-197")
+    rng = np.random.default_rng(16)
+    rk = aes128_key_expand(rng.integers(0, 256, 16, dtype=np.uint8))
+    nonce = rng.integers(0, 256, 12, dtype=np.uint8)
+    c0 = 2**32 - 100
+    got = aes_ctr_keystream(rk, nonce, c0, WINDOW, device=dev)
+    want = aes_ctr_keystream(rk, nonce, c0, WINDOW, device="cpu")
+    errors.same("aes_ctr", got.cpu(), want, "aes_ctr_keystream")
+    log(f"  aes_ctr_keystream: FIPS-197 and {WINDOW} blocks across the "
+        "counter wrap equal the plain version")
+    return {"blocks": WINDOW, "counter0": c0}
+
+
+def sharded_engine_phase(dev) -> dict:
+    """The sharded engine over 1 and 3 copies of the card against the
+    cuda engine, word for word: every preset, variant and reduction mode,
+    noise on, at lane counts that pad and trim."""
+    import torch
+
+    from repro_torch.core.cipher import CipherBatch
+    from repro_torch.core.params import REGISTRY
+    from repro_torch.core.redplan import REDUCTION_MODES
+    from repro_torch.core.schedule import VARIANTS
+
+    top = max(SHARD_LANE_COUNTS)
+    rule = "cuda" if dev.type == "cuda" else "ref"
+    rng = np.random.default_rng(10)
+    calls = 0
+    for i, name in enumerate(sorted(REGISTRY)):
+        cb = CipherBatch(name, seed=500 + i, device=dev)
+        cb.add_sessions(4)
+        k = cb.round_constant_stream(rng.integers(0, 4, top),
+                                     rng.integers(0, 2**16, top))
+        for variant in VARIANTS:
+            for red in REDUCTION_MODES:
+                cuda = cb.make_engine(rule, variant=variant, reduction=red)
+                sharded = [cb.make_engine("sharded", devices=[dev] * n,
+                                          variant=variant, reduction=red)
+                           for n in SHARD_COPIES]
+                for lanes in SHARD_LANE_COUNTS:
+                    part = {key: None if v is None else v[:lanes]
+                            for key, v in k.items()}
+                    want = cuda(part)
+                    for n, eng in zip(SHARD_COPIES, sharded):
+                        got = eng(part)
+                        calls += 1
+                        check(got.shape == want.shape
+                              and torch.equal(got, want),
+                              f"sharded x{n} {name}/{variant}/{red}/"
+                              f"{lanes} lanes differs from cuda")
+    log(f"  sharded engine over {SHARD_COPIES} copies of the card equals "
+        f"the cuda engine in {calls} calls ({len(REGISTRY)} presets x "
+        f"variants x reductions x lanes {SHARD_LANE_COUNTS}, noise on)")
+    return {"calls": calls, "copies": list(SHARD_COPIES),
+            "lane_counts": list(SHARD_LANE_COUNTS)}
+
+
+def sharded_serving_phase(dev, untuned: dict, served: dict):
+    """The phase-5 mix served on ``engine="sharded"`` over 1 and 2 copies
+    of the card: every response equal to phase 5's, launches counted as
+    the "sharded" path.  Returns the metrics and the summed launches."""
+    out, launches = {}, {k: 0 for k in SOURCES}
+    for name, mdepth, row in SHARDED_SERVE:
+        for n in SHARDED_SERVE_COPIES:
+            metrics, results = serve_preset(dev, name, mdepth, seed=100 + row,
+                                            engine="sharded",
+                                            devices=[dev] * n)
+            want = served[name]
+            check(len(results) == len(want), f"{name} x{n}: response count")
+            for (c1, r1), (c2, r2) in zip(results, want):
+                check(np.array_equal(c1, c2) and r1.dtype == r2.dtype
+                      and np.array_equal(r1, r2),
+                      f"{name} sharded x{n}: a response differs from phase 5")
+            for k in MAIN_PATH:
+                check(metrics["launches"][k] > 0,
+                      f"{name} sharded x{n}: kernel {k} not launched")
+            for k, v in metrics["launches"].items():
+                launches[k] += v
+            base = untuned[name]
+            out[f"{name} x{n}"] = {
+                "window_p50_ms": metrics["window_p50_ms"],
+                "window_p99_ms": metrics["window_p99_ms"],
+                "cuda_window_p50_ms": base["window_p50_ms"],
+                "cuda_window_p99_ms": base["window_p99_ms"],
+                "keystream_words_per_s": metrics["keystream_words_per_s"],
+                "cuda_keystream_words_per_s": base["keystream_words_per_s"],
+                "launches": metrics["launches"]}
+            log(f"  {name} sharded x{n}: window p50 "
+                f"{metrics['window_p50_ms']:.3f} ms against cuda "
+                f"{base['window_p50_ms']:.3f} ms; every response equal")
+    return out, launches
+
+
+def sharded_tuner_phase(dev, cache: Path) -> dict:
+    """The tuner with devices: "sharded" joins the grid only with them,
+    one sharded plan is measured, and a cached sharded plan is trusted
+    only with devices (a cache of its own)."""
+    from repro_torch.core.tuner import (
+        candidate_plans,
+        load_plan,
+        measure_plan,
+        save_plan,
+    )
+
+    name = "hera-128a"
+    grid = candidate_plans(name, WINDOW, device=dev, devices=[dev])
+    plain = candidate_plans(name, WINDOW, device=dev)
+    check(any(p.engine == "sharded" for p in grid),
+          "candidate_plans(devices=[card]) lacks sharded")
+    check(not any(p.engine == "sharded" for p in plain),
+          "candidate_plans without devices has sharded")
+    plan = next(p for p in grid if p.engine == "sharded")
+    p50 = measure_plan(name, plan, WINDOW, sessions=SESSIONS, device=dev,
+                       devices=[dev])
+    own = cache.with_name("sharded.json")
+    save_plan(name, WINDOW, plan, p50 * 1e3, own, device=dev)
+    check(load_plan(name, WINDOW, own, device=dev) is None,
+          "a cached sharded plan was trusted without devices")
+    check(load_plan(name, WINDOW, own, device=dev, devices=[dev]) == plan,
+          "a cached sharded plan was not trusted with devices")
+    log(f"  grid {len(grid)} candidates with devices, {len(plain)} "
+        f"without; {plan.describe()}: p50 {p50 * 1e3:.3f} ms")
+    return {"grid": len(grid), "grid_without_devices": len(plain),
+            "plan": plan.to_json(), "p50_ms": p50 * 1e3}
+
+
+def examples_phase() -> dict:
+    """Both port examples as child processes on the card: exit 0, and the
+    farm example's D1/D2/D3 times."""
+    out = {}
+    for script, *args in EXAMPLES:
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / script), *args],
+                           capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t
+        check(r.returncode == 0, f"{script} exited {r.returncode}:\n"
+              f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+        out[script] = {"seconds": seconds}
+        log(f"  {script} {' '.join(args)}: exit 0 in {seconds:.1f} s")
+        if "--lanes" in args:
+            out[script].update(json.loads(r.stdout.strip().splitlines()[-1]))
+            for name, d in out[script]["design_points"].items():
+                log(f"    {name}: D1 {d['D1_ms']:.3f} ms, D2 "
+                    f"{d['D2_ms']:.3f} ms, D3 {d['D3_ms']:.3f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -1879,13 +2164,30 @@ def run(args, cache: Path) -> int:
     trans = transcipher_phase(dev, hera_plan)
     log(json.dumps({"transcipher": trans}))
     phases["transcipher_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log("[10] the HHE surface: encode edges, presto_keystream, "
+        "aes_ctr_keystream, the sharded engine, its server and tuner, the "
+        "examples")
+    surface = {"encode": encode_phase(dev)}
+    launches_presto = presto_phase(dev)
+    surface["aes_ctr_keystream"] = aes_ctr_phase(dev, errors)
+    surface["sharded_engine"] = sharded_engine_phase(dev)
+    surface["sharded_serving"], launches_sharded = sharded_serving_phase(
+        dev, serving, served)
+    surface["sharded_tuner"] = sharded_tuner_phase(dev, cache)
+    surface["examples"] = examples_phase()
+    log(json.dumps({"surface": surface}))
+    phases["surface_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({"phases": phases}))
 
     rows["mrmc"]["bandwidth"] = bw
     paths = {"hhe_server": launches, "tcp_plane": launches_tcp,
-             "tuned_server": launches_tuned, **trans["launches"]}
+             "tuned_server": launches_tuned, **trans["launches"],
+             "presto_keystream": launches_presto,
+             "sharded": launches_sharded}
     kernels = kernel_entries(rows, times, paths, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))

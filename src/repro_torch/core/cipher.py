@@ -15,6 +15,9 @@ order as the reference, so a seed gives the same cipher in both packages.
 
 Message encoding: m_q = round(m·Δ) centered into Z_q (float32 multiply,
 round half to even, as the reference's `jnp.round`); c = m_q + z; m_q = c − z.
+Every encrypt and decrypt path goes through :func:`encrypt_fixed` and
+:func:`decrypt_fixed`, which give the reference's uint32 word (and float)
+for every float32 plaintext, also outside the encodable range.
 """
 
 from __future__ import annotations
@@ -36,17 +39,71 @@ from repro_torch.core.producer import (
 from repro_torch.device import resolve_device
 
 
+#: The reference's words are uint32 and its cast to them is int32: the
+#: encrypt/decrypt boundary wraps int64 values as those types do.
+_U32_MASK = (1 << 32) - 1
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _wrap_u32(x):
+    """int64 -> the value uint32 arithmetic would hold: x mod 2^32."""
+    return x & _U32_MASK
+
+
+def _wrap_i32(x):
+    """int64 -> the value int32 arithmetic would hold (two's complement)."""
+    return ((x - _I32_MIN) & _U32_MASK) + _I32_MIN
+
+
 def encode_fixed(mod, m_real, delta: float):
-    """Fixed-point encode: m_q = round(m·Δ) centered into Z_q (int64)."""
+    """Fixed-point encode: m_q = round(m·Δ) centered into Z_q, as int64
+    word values in [0, 2^32).
+
+    The reference's word for every float32 input, in range or not: its
+    float32 -> int32 cast maps NaN to 0 and saturates at the int32 range
+    (done here in float64, so no device's own cast decides it), then
+    ``from_signed`` adds q to a negative value and wraps it to uint32.
+    Outside |round(m·Δ)| < q the word leaves Z_q, as the reference's does.
+    """
     m = torch.as_tensor(np.asarray(m_real, np.float32)
                         if not torch.is_tensor(m_real) else m_real)
-    mq = torch.round(m.to(torch.float32) * delta).to(torch.int32)
-    return mod.from_signed(mq)
+    r = torch.round(m.to(torch.float32) * delta).to(torch.float64)
+    r = torch.nan_to_num(r, nan=0.0, posinf=_I32_MAX, neginf=_I32_MIN)
+    e = r.clamp(_I32_MIN, _I32_MAX).to(torch.int64)
+    return _wrap_u32(torch.where(e < 0, e + mod.q, e))
 
 
 def decode_fixed(mod, m_q, delta: float):
-    """Inverse of :func:`encode_fixed` (float32)."""
-    return mod.to_signed(m_q).to(torch.float32) / delta
+    """Inverse of :func:`encode_fixed` (float32): the reference's
+    ``to_signed`` on a uint32 word, int32 wrap included."""
+    x = _wrap_u32(m_q.to(torch.int64))
+    xi = _wrap_i32(x)
+    s = torch.where(x > mod.q // 2, _wrap_i32(xi - mod.q), xi)
+    return s.to(torch.float32) / delta
+
+
+def add_words(mod, x, z):
+    """``mod.add`` on words outside Z_q as the reference's uint32 add runs
+    it: the sum wraps mod 2^32 before the conditional subtract.  Equal to
+    ``mod.add`` on words in Z_q."""
+    return mod.reduce(_wrap_u32(x + z), 2 * mod.q)
+
+
+def sub_words(mod, c, z):
+    """``mod.sub`` of keystream z from a word c in [0, 2^32), as the
+    reference's uint32 sub runs it (c + q - z wraps mod 2^32)."""
+    return mod.reduce(_wrap_u32(_wrap_u32(c) + mod.q - z), 2 * mod.q)
+
+
+def encrypt_fixed(mod, m_real, z, delta: float):
+    """The encrypt boundary: encode real messages and add keystream z."""
+    return add_words(mod, encode_fixed(mod, m_real, delta).to(z.device), z)
+
+
+def decrypt_fixed(mod, c, z, delta: float):
+    """The decrypt boundary: subtract keystream z from ciphertext words c
+    and decode to float32."""
+    return decode_fixed(mod, sub_words(mod, as_int64(c, z.device), z), delta)
 
 
 def as_int64(x, device):
@@ -117,12 +174,11 @@ class Cipher:
     def encrypt(self, m_real, block_ctrs, delta: float = 1024.0,
                 constants=None):
         z = self.keystream(block_ctrs, constants)
-        return self.params.mod.add(self.encode(m_real, delta), z)
+        return encrypt_fixed(self.params.mod, m_real, z, delta)
 
     def decrypt(self, c, block_ctrs, delta: float = 1024.0, constants=None):
         z = self.keystream(block_ctrs, constants)
-        return self.decode(self.params.mod.sub(as_int64(c, z.device), z),
-                           delta)
+        return decrypt_fixed(self.params.mod, c, z, delta)
 
 
 def make_cipher(name: str, key=None, nonce=None, seed: int = 0,
@@ -200,12 +256,15 @@ class CipherBatch:
         self._mat_host: List[SessionMaterial] = []
         self._tables = None                       # device tables, lazy
 
-    def make_engine(self, spec: EngineSpec = "auto", *,
+    def make_engine(self, spec: EngineSpec = "auto", *, devices=None,
                     variant: Optional[str] = None,
                     reduction: Optional[str] = None):
-        """Bind a consumer engine to this pool's (params, key, device)."""
+        """Bind a consumer engine to this pool's (params, key, device);
+        ``devices`` are the devices the ``sharded`` engine splits lanes
+        over (the first must be the pool's device)."""
         return make_engine(spec, self.params, self.key, device=self.device,
-                           variant=variant, reduction=reduction)
+                           devices=devices, variant=variant,
+                           reduction=reduction)
 
     # ---------------- producer plumbing -----------------------------------
     def set_producer(self, spec: ProducerSpec) -> ConstantsProducer:
@@ -293,11 +352,9 @@ class CipherBatch:
     def encrypt(self, m_real, session_ids, block_ctrs, delta: float = 1024.0,
                 constants=None):
         z = self.keystream(session_ids, block_ctrs, constants)
-        mod = self.params.mod
-        return mod.add(encode_fixed(mod, m_real, delta).to(z.device), z)
+        return encrypt_fixed(self.params.mod, m_real, z, delta)
 
     def decrypt(self, c, session_ids, block_ctrs, delta: float = 1024.0,
                 constants=None):
         z = self.keystream(session_ids, block_ctrs, constants)
-        mod = self.params.mod
-        return decode_fixed(mod, mod.sub(as_int64(c, z.device), z), delta)
+        return decrypt_fixed(self.params.mod, c, z, delta)

@@ -7,19 +7,25 @@ keystream is a registered engine with declared capabilities:
                the engine is bound to.  The bit-exactness oracle.
   * ``cuda`` — the fused CUDA keystream kernel (csrc/keystream.cu).  Needs
                a CUDA device.
+  * ``sharded`` — the fused kernel with its lanes split over the devices
+               the caller names (``devices=``, the reference's mesh): key
+               copied, constants split, no other traffic.  Unavailable
+               without ``devices``.
 
 "auto" resolves by the device the caller asked for: ``cuda`` for a CUDA
-device, ``ref`` for an explicit CPU — never by what happens to be
-installed.  With a ``params`` context it first consults the tuner's
-measured `StreamPlan` for (preset, this host and device), which can pick
-only an engine that runs on that device and is never the oracle ``ref``
-on a card.  All engines are bit-exact with ``ref``.
+device (``sharded`` when ``devices`` are named), ``ref`` for an explicit
+CPU — never by what happens to be installed.  With a ``params`` context
+it first consults the tuner's measured `StreamPlan` for (preset, this
+host and device), which can pick only an engine that runs on that device
+and is never the oracle ``ref`` on a card.  The reference's legacy spec
+"kernel" resolves to ``sharded`` when ``devices`` are named, else to the
+device rule's engine.  All engines are bit-exact with ``ref``.
 
     eng = make_engine("auto", params, key, device="cuda")
     z = eng.keystream_from_constants(rc, noise, mats)   # or eng(constants)
 
-``python -m repro_torch.core.engine [--device cpu]`` prints the registry
-table.
+``python -m repro_torch.core.engine [--device cpu] [--devices cpu,cpu]``
+prints the registry table.
 """
 
 from __future__ import annotations
@@ -34,7 +40,10 @@ from repro_torch.core.params import CipherParams
 from repro_torch.core.redplan import DEFAULT_REDUCTION, REDUCTION_MODES
 from repro_torch.core.schedule import VARIANTS, build_schedule
 from repro_torch.device import resolve_device
-from repro_torch.kernels.keystream.ops import keystream_kernel_apply
+from repro_torch.kernels.keystream.ops import (
+    keystream_kernel_apply,
+    keystream_kernel_sharded,
+)
 from repro_torch.kernels.keystream.ref import keystream_ref
 
 
@@ -51,6 +60,24 @@ class EngineCaps:
     preferred_variant: str = "normal"
 
 
+def _as_devices(devices) -> Optional[Tuple[torch.device, ...]]:
+    """A ``devices=`` argument as a tuple of devices (None stays None); a
+    CUDA device without an index means the current one, as in
+    :func:`resolve_device`."""
+    if devices is None:
+        return None
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None \
+                and torch.cuda.is_available():
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    if not out:
+        raise ValueError("devices= names no device")
+    return tuple(out)
+
+
 def _key_tensor(key, device) -> torch.Tensor:
     if torch.is_tensor(key):
         return key.to(device=device, dtype=torch.int64)
@@ -63,11 +90,12 @@ class KeystreamEngine:
     name: str = "?"
 
     def __init__(self, params: CipherParams, key, *, device=None,
-                 variant: str = "normal",
+                 devices=None, variant: str = "normal",
                  reduction: str = DEFAULT_REDUCTION):
         self.params = params
         self.device = resolve_device(device)
-        self.caps = type(self).query_caps()
+        self.devices = _as_devices(devices)
+        self.caps = _caps(type(self), self.devices)
         if self.device.type not in self.caps.device_types:
             raise ValueError(
                 f"engine {self.name!r} runs on {self.caps.device_types}, "
@@ -88,6 +116,10 @@ class KeystreamEngine:
             )
         self.reduction = reduction
         self.schedule = build_schedule(params, variant)
+
+    #: whether the capabilities depend on ``devices=`` (only the sharded
+    #: engine's do); the others keep a no-argument ``query_caps``
+    takes_devices = False
 
     @classmethod
     def query_caps(cls) -> EngineCaps:
@@ -131,9 +163,17 @@ def registered_engines() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def engine_caps() -> Dict[str, EngineCaps]:
-    """Capability report for every registered engine."""
-    return {name: cls.query_caps() for name, cls in sorted(_REGISTRY.items())}
+def _caps(cls: Type[KeystreamEngine], devices) -> EngineCaps:
+    return cls.query_caps(devices=devices) if cls.takes_devices \
+        else cls.query_caps()
+
+
+def engine_caps(*, devices=None) -> Dict[str, EngineCaps]:
+    """Capability report for every registered engine (``sharded`` is
+    available only when ``devices`` are named)."""
+    devices = _as_devices(devices)
+    return {name: _caps(cls, devices)
+            for name, cls in sorted(_REGISTRY.items())}
 
 
 #: Correctness oracles: never an "auto" choice on a card, never a tuner
@@ -141,45 +181,62 @@ def engine_caps() -> Dict[str, EngineCaps]:
 ORACLES = ("ref",)
 
 
+def _runs_on(name: str, device: torch.device, devices) -> bool:
+    """Whether engine ``name`` could serve ``device`` (with ``devices``):
+    available, for this device type, and not an oracle on a card."""
+    caps = _caps(_REGISTRY[name], devices)
+    return (caps.available and device.type in caps.device_types
+            and not (device.type == "cuda" and name in ORACLES))
+
+
 def _tuned_engine(params: Optional[CipherParams], device: torch.device,
-                  fallback: str) -> Optional[str]:
+                  fallback: str, devices=None) -> Optional[str]:
     """The engine of the tuner's cached plan for (preset, this host and
     device), or None: no ``params`` context, no registered engine other
-    than ``fallback`` that a plan could name on this device (the cache
-    could not change the answer, so it is not read), no valid plan
-    (`load_plan` trusts only engines available on ``device``), or the
-    oracle on a card.  Looked up with lanes=None (engines bind
-    lane-agnostic): the largest tuned lane count decides.  Lane-exact plan
-    application is the ``plan=`` path of the farm and server."""
+    than ``fallback`` that could serve this device with these ``devices``
+    (the cache could not change the answer, so it is not read), no valid
+    plan (`load_plan` trusts only engines available here), or the oracle
+    on a card.  Looked up with lanes=None (engines bind lane-agnostic):
+    the largest tuned lane count decides.  Lane-exact plan application is
+    the ``plan=`` path of the farm and server."""
     if params is None:
         return None
-    if not any(name != fallback
-               and device.type in cls.query_caps().device_types
-               and not (device.type == "cuda" and name in ORACLES)
-               for name, cls in _REGISTRY.items()):
+    if not any(name != fallback and _runs_on(name, device, devices)
+               for name in _REGISTRY):
         return None
     from repro_torch.core.tuner import load_plan
 
-    plan = load_plan(params, lanes=None, device=device)
+    plan = load_plan(params, lanes=None, device=device, devices=devices)
     if plan is None or (device.type == "cuda" and plan.engine in ORACLES):
         return None
     return plan.engine
 
 
-def resolve_engine(spec: str, device, params: Optional[CipherParams] = None
-                   ) -> str:
-    """THE single place engine selection lives: "auto" is the tuned
-    plan's engine when ``params`` is given and a valid plan for this
-    device is cached (`_tuned_engine`), else ``cuda`` on a CUDA device and
-    ``ref`` on an explicit CPU device."""
-    if spec == "auto":
-        dev = torch.device(device)
-        fallback = "cuda" if dev.type == "cuda" else "ref"
-        spec = _tuned_engine(params, dev, fallback) or fallback
+def resolve_engine(spec: str, device, params: Optional[CipherParams] = None,
+                   devices=None) -> str:
+    """THE single place engine selection lives.
+
+      * "auto" -> the tuned plan's engine when ``params`` is given and a
+        valid plan for this device is cached (`_tuned_engine`), else the
+        device rule: ``sharded`` on a CUDA device when ``devices`` are
+        named, ``cuda`` on a CUDA device, ``ref`` on an explicit CPU;
+      * "kernel" (the reference's legacy farm consumer name) ->
+        ``sharded`` when ``devices`` are named, else the device rule's
+        engine.
+    """
+    devices = _as_devices(devices)
+    dev = torch.device(device)
+    rule = "cuda" if dev.type == "cuda" else "ref"
+    if spec == "kernel":
+        spec = "sharded" if devices else rule
+    elif spec == "auto":
+        fallback = "sharded" if devices and dev.type == "cuda" else rule
+        spec = _tuned_engine(params, dev, fallback, devices) or fallback
     if spec not in _REGISTRY:
         raise ValueError(
             f"unknown keystream engine {spec!r}; registered engines: "
-            f"{list(registered_engines())} (plus 'auto')"
+            f"{list(registered_engines())} (plus 'auto' and the legacy "
+            "'kernel' alias)"
         )
     return spec
 
@@ -188,11 +245,13 @@ EngineSpec = Union[str, KeystreamEngine]
 
 
 def make_engine(spec: EngineSpec, params: CipherParams, key, *, device=None,
-                variant: Optional[str] = None,
+                devices=None, variant: Optional[str] = None,
                 reduction: Optional[str] = None) -> KeystreamEngine:
-    """Resolve ``spec`` and bind it to (params, key, device).  An engine
-    instance passes through only if it is bound to the same (params, key)
-    and does not contradict an explicit variant or reduction mode."""
+    """Resolve ``spec`` and bind it to (params, key, device); ``devices``
+    names the devices the ``sharded`` engine splits lanes over.  An
+    engine instance passes through only if it is bound to the same
+    (params, key) and does not contradict an explicit variant or
+    reduction mode."""
     if isinstance(spec, KeystreamEngine):
         if spec.params != params or not torch.equal(
                 spec.key.cpu(), _key_tensor(key, "cpu")):
@@ -210,13 +269,14 @@ def make_engine(spec: EngineSpec, params: CipherParams, key, *, device=None,
                 f"reduction schedule; requested {reduction!r}")
         return spec
     dev = resolve_device(device)
-    name = resolve_engine(spec, dev, params)
+    devices = _as_devices(devices)
+    name = resolve_engine(spec, dev, params, devices)
     cls = _REGISTRY[name]
-    caps = cls.query_caps()
+    caps = _caps(cls, devices)
     if not caps.available:
         raise RuntimeError(
             f"keystream engine {name!r} unavailable here: {caps.reason}")
-    return cls(params, key, device=dev,
+    return cls(params, key, device=dev, devices=devices,
                variant=variant if variant is not None else "normal",
                reduction=reduction if reduction is not None
                else DEFAULT_REDUCTION)
@@ -267,18 +327,64 @@ class CudaEngine(KeystreamEngine):
             mats=mats, reduction=self.reduction)
 
 
+@register_engine
+class ShardedEngine(KeystreamEngine):
+    """The fused kernel with its lanes split over ``devices``
+    (`keystream_kernel_sharded`): key copied to each device, constants
+    split, keystream gathered on ``devices[0]``, which must be the
+    engine's own device.  On one device it is the ``cuda`` engine; CPU
+    devices run the plain version."""
+
+    name = "sharded"
+    takes_devices = True
+
+    @classmethod
+    def query_caps(cls, *, devices=None) -> EngineCaps:
+        devices = _as_devices(devices)
+        desc = "fused kernel, lanes split over the named devices"
+        reason = ""
+        if devices is None:
+            reason = "needs devices (pass devices= to make_engine)"
+        elif len({d.type for d in devices}) > 1:
+            reason = "devices mix device types"
+        elif devices[0].type == "cuda" and not torch.cuda.is_available():
+            reason = "no CUDA device is available"
+        else:
+            desc += f" ({len(devices)} x {devices[0].type})"
+        return EngineCaps(name=cls.name, description=desc,
+                          available=not reason, reason=reason)
+
+    def __init__(self, params, key, *, device=None, devices=None, **kw):
+        super().__init__(params, key, device=device, devices=devices, **kw)
+        if not self.caps.available:
+            raise RuntimeError(
+                f"keystream engine {self.name!r} unavailable here: "
+                f"{self.caps.reason}")
+        if self.devices[0] != self.device:
+            raise ValueError(
+                f"devices[0] is {self.devices[0]}, not the engine's device "
+                f"{self.device}: the keystream is gathered on devices[0]")
+
+    def _run(self, rc, noise, mats):
+        if noise is not None and not self.params.n_noise:
+            noise = None
+        return keystream_kernel_sharded(
+            self.params, self.key, rc, noise, devices=self.devices,
+            variant=self.variant, mats=mats, reduction=self.reduction)
+
+
 # ==========================================================================
 # Introspection CLI: `python -m repro_torch.core.engine`
 # ==========================================================================
-def describe(device=None) -> str:
+def describe(device=None, devices=None) -> str:
     """The engine registry as a table: one row per backend, with
     availability (and the reason when unavailable), device types and
     schedule variants, and what "auto" resolves to on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU) with ``devices``."""
     dev = resolve_device(device)
     rows = [("engine", "available", "devices", "variants (pref)",
              "description / reason")]
-    for name, c in engine_caps().items():
+    for name, c in engine_caps(devices=devices).items():
         variants = "/".join(c.schedule_variants) + f" ({c.preferred_variant})"
         detail = c.description if c.available else f"UNAVAILABLE: {c.reason}"
         rows.append((name, "yes" if c.available else "no",
@@ -292,7 +398,9 @@ def describe(device=None) -> str:
             lines.append("  ".join("-" * w for w in widths) + "  " + "-" * 24)
     lines.append("")
     lines.append(f"device: {dev}   auto resolves to: "
-                 f"{resolve_engine('auto', dev)!r} (without a tuned plan)")
+                 f"{resolve_engine('auto', dev, devices=devices)!r} "
+                 "(without a tuned plan; legacy alias 'kernel' also "
+                 "accepted)")
     return "\n".join(lines)
 
 
@@ -302,8 +410,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="the keystream engine registry")
     ap.add_argument("--device", default=None,
                     help="device \"auto\" resolves for (default: the card)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices for the sharded engine, "
+                         "e.g. cuda:0,cuda:1")
     args = ap.parse_args(argv)
-    print(describe(args.device))
+    devices = args.devices.split(",") if args.devices else None
+    print(describe(args.device, devices))
     return 0
 
 

@@ -27,9 +27,8 @@ import torch
 
 from repro_torch.core.cipher import (
     CipherBatch,
-    as_int64,
-    decode_fixed,
-    encode_fixed,
+    decrypt_fixed,
+    encrypt_fixed,
 )
 from repro_torch.core.engine import EngineSpec
 
@@ -126,7 +125,9 @@ class KeystreamFarm:
     """Depth-configurable producer→consumer pipeline over a CipherBatch.
 
     ``engine``: any registered engine name, "auto" (``cuda`` on a CUDA
-    pool, ``ref`` on a CPU pool) or a bound engine instance.  ``depth`` is
+    pool, ``ref`` on a CPU pool) or a bound engine instance; ``devices``
+    names the devices the ``sharded`` engine splits each window's lanes
+    over (the reference's ``mesh``).  ``depth`` is
     the producer→consumer FIFO depth (2 = double buffering, 1 =
     serialized).  ``matrix_depth >= 2`` produces the matrix plane of
     stream-matrix presets (PASTA) up to that many windows ahead through a
@@ -139,7 +140,8 @@ class KeystreamFarm:
     """
 
     def __init__(self, batch: CipherBatch, engine: Optional[EngineSpec] = None,
-                 *, variant: Optional[str] = None, depth: Optional[int] = None,
+                 *, devices=None, variant: Optional[str] = None,
+                 depth: Optional[int] = None,
                  matrix_depth: Optional[int] = None,
                  reduction: Optional[str] = None, plan=None):
         self.plan = plan
@@ -168,7 +170,8 @@ class KeystreamFarm:
         self.matrix_depth = matrix_depth
         self.batch = batch
         self.engine = batch.make_engine("auto" if engine is None else engine,
-                                        variant=variant, reduction=reduction)
+                                        devices=devices, variant=variant,
+                                        reduction=reduction)
         self._stream = (torch.cuda.Stream(device=batch.device)
                         if batch.device.type == "cuda" else None)
         self._synced_tables = None
@@ -258,14 +261,13 @@ class KeystreamFarm:
         """Iterable of (WindowPlan, (lanes, l) float) -> (plan, ciphertext)."""
         mod = self.batch.params.mod
         for plan, m, z in self._payload_stream(plans_and_msgs):
-            yield plan, mod.add(encode_fixed(mod, m, delta).to(z.device), z)
+            yield plan, encrypt_fixed(mod, m, z, delta)
 
     def decrypt_stream(self, plans_and_cts, delta: float = 1024.0):
         """Iterable of (WindowPlan, (lanes, l) ints) -> (plan, float32)."""
         mod = self.batch.params.mod
         for plan, ct, z in self._payload_stream(plans_and_cts):
-            yield plan, decode_fixed(mod, mod.sub(as_int64(ct, z.device), z),
-                                     delta)
+            yield plan, decrypt_fixed(mod, ct, z, delta)
 
 
 class FarmPipeline:

@@ -43,6 +43,20 @@ def _branch_view(params: CipherParams, x):
     return x.reshape(x.shape[:-1] + (params.branches, params.v, params.v))
 
 
+def mix_columns(params: CipherParams, x):
+    """Y = M_v X per branch (the matrix multiplies the columns)."""
+    X = _branch_view(params, x)
+    Y = params.mod.matvec_small(params.mix_matrix(), X, axis=-2)
+    return Y.reshape(x.shape)
+
+
+def mix_rows(params: CipherParams, x):
+    """Y = X M_vᵀ per branch (each row multiplied by M_v)."""
+    X = _branch_view(params, x)
+    Y = params.mod.matvec_small(params.mix_matrix(), X, axis=-1)
+    return Y.reshape(x.shape)
+
+
 def mrmc(params: CipherParams, x, in_bound: int | None = None,
          lazy: bool = False):
     """Fused MixRows∘MixColumns = M_v X M_vᵀ per branch.  ``lazy=True``
@@ -57,22 +71,40 @@ def mrmc(params: CipherParams, x, in_bound: int | None = None,
     return Z.reshape(x.shape)
 
 
+def mrmc_transposed(params: CipherParams, x_t):
+    """MRMC of a transposed (column-major) state, per branch: by
+    MRMC(Xᵀ) = MRMC(X)ᵀ it equals :func:`mrmc` on the stored array, the
+    identity the alternating schedule variant relies on."""
+    Xt = _branch_view(params, x_t).transpose(-1, -2)
+    out = mrmc(params, Xt.reshape(x_t.shape))
+    return _branch_view(params, out).transpose(-1, -2).reshape(x_t.shape)
+
+
 def cube(params: CipherParams, x):
     """HERA nonlinearity: elementwise x^3 mod q."""
     return params.mod.cube(x)
 
 
-def feistel(params: CipherParams, x):
-    """Type-3 Feistel, parallel form, per branch, on reduced state:
+def feistel(params: CipherParams, x, in_bound: int | None = None):
+    """Type-3 Feistel, parallel form, per branch:
 
         y_1 = x_1;  y_i = x_i + x_{i-1}^2   (original x values)
+
+    ``in_bound`` relaxes the operand contract: the square runs the
+    bound-carrying multiply and the output add reduces from in_bound + q
+    instead of 2q.
     """
     mod = params.mod
     b = params.branches
+    in_b = mod.q if in_bound is None else in_bound
     X = x.reshape(x.shape[:-1] + (b, x.shape[-1] // b))
-    sq = mod.square(X[..., :-1])
+    if in_b <= mod.q:
+        sq = mod.square(X[..., :-1])
+        shifted = torch.cat([torch.zeros_like(X[..., :1]), sq], dim=-1)
+        return mod.add(X, shifted).reshape(x.shape)
+    sq = mod.mul(X[..., :-1], X[..., :-1], x_bound=in_b, y_bound=in_b)
     shifted = torch.cat([torch.zeros_like(X[..., :1]), sq], dim=-1)
-    return mod.add(X, shifted).reshape(x.shape)
+    return mod.reduce(X + shifted, in_b + mod.q).reshape(x.shape)
 
 
 def branch_mix(params: CipherParams, x, in_bound: int | None = None,

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import rounds as R
 from repro_torch.core import schedule as S
-from repro_torch.core.cipher import Cipher, as_int64, make_cipher
+from repro_torch.core.cipher import Cipher, as_int64, make_cipher, sub_words
 from repro_torch.core.params import CipherParams
 
 
@@ -166,5 +166,5 @@ def transcipher(cipher: Cipher, c, block_ctrs, delta: float = 1024.0):
     c = as_int64(c, z.device)
     if c.shape[-1] != l:
         raise ValueError(f"ciphertext last dim {c.shape[-1]} != l={l}")
-    mq = cipher.params.mod.sub(c, z)
+    mq = sub_words(cipher.params.mod, c, z)
     return cipher.decode(mq, delta), depth

@@ -164,15 +164,16 @@ def _coerce_params(params: Union[CipherParams, str]) -> CipherParams:
 
 
 def _plan_is_valid(plan: StreamPlan, params: CipherParams,
-                   device: torch.device) -> bool:
+                   device: torch.device, devices=None) -> bool:
     """A cached plan is trusted only if every named backend still exists,
-    is available, runs on ``device``, and preserves the preset's stream."""
+    is available (a ``sharded`` plan only with ``devices``), runs on
+    ``device``, and preserves the preset's stream."""
     pcaps = producer_caps().get(plan.producer)
     if pcaps is None or not pcaps.available:
         return False
     if pcaps.stream not in (None, params.xof):
         return False
-    ecaps = engine_caps().get(plan.engine)
+    ecaps = engine_caps(devices=devices).get(plan.engine)
     if ecaps is None or not ecaps.available \
             or device.type not in ecaps.device_types:
         return False
@@ -217,8 +218,8 @@ def _entry_schema(entry: dict) -> int:
         return 0
 
 
-def _entry_plan(entry: dict, params: CipherParams,
-                device: torch.device) -> Optional[StreamPlan]:
+def _entry_plan(entry: dict, params: CipherParams, device: torch.device,
+                devices=None) -> Optional[StreamPlan]:
     """Parse and validate one cache entry; None when it must not be
     trusted (stale schema, malformed, or naming unusable backends)."""
     if _entry_schema(entry) != PLAN_SCHEMA:
@@ -227,7 +228,7 @@ def _entry_plan(entry: dict, params: CipherParams,
         plan = StreamPlan.from_json(entry)
     except (KeyError, TypeError, ValueError):
         return None
-    return plan if _plan_is_valid(plan, params, device) else None
+    return plan if _plan_is_valid(plan, params, device, devices) else None
 
 
 def _nearest(plans: dict, params: CipherParams, lanes: Optional[int],
@@ -256,23 +257,25 @@ def _nearest(plans: dict, params: CipherParams, lanes: Optional[int],
 
 
 def load_plan(params: Union[CipherParams, str], lanes: Optional[int] = None,
-              cache_path=None, *, device=None) -> Optional[StreamPlan]:
+              cache_path=None, *, device=None,
+              devices=None) -> Optional[StreamPlan]:
     """Cache-only lookup (never measures): the tuned plan for (preset,
     lanes) on this host and device, or None.
 
     With ``lanes=None``, or when the exact lane count was never tuned,
     falls back to the nearest tuned lane count (the largest for None).
     Entries naming backends that are gone, unavailable or not for this
-    device, and entries of another ``PLAN_SCHEMA``, are ignored.
+    device (a ``sharded`` plan without ``devices``), and entries of
+    another ``PLAN_SCHEMA``, are ignored.
     """
     params = _coerce_params(params)
     dev = resolve_device(device)
     plans = _read_cache(_cache_path(cache_path))["plans"]
     exact = plans.get(cache_key(params, lanes, dev))
     if exact is not None:
-        return _entry_plan(exact, params, dev)
+        return _entry_plan(exact, params, dev, devices)
     return _nearest(plans, params, lanes, dev,
-                    lambda e: _entry_plan(e, params, dev))
+                    lambda e: _entry_plan(e, params, dev, devices))
 
 
 def load_measurements(params: Union[CipherParams, str],
@@ -303,7 +306,7 @@ def load_measurements(params: Union[CipherParams, str],
 # Measurement: the real farm loop, per candidate plan
 # ==========================================================================
 def candidate_plans(params: Union[CipherParams, str], lanes: int, *,
-                    device=None,
+                    device=None, devices=None,
                     producers: Optional[Sequence[str]] = None,
                     engines: Optional[Sequence[str]] = None,
                     variants: Optional[Sequence[str]] = None,
@@ -315,8 +318,9 @@ def candidate_plans(params: Union[CipherParams, str], lanes: int, *,
     """The default candidate grid for one (preset, lanes) shape.
 
     Producers: every stream-preserving backend.  Engines: every available
-    engine that runs on the device except the oracle ``ref`` — or
-    ``["ref"]`` when that leaves none (an explicit CPU).  Windows: the
+    engine that runs on the device except the oracle ``ref`` (``sharded``
+    only when ``devices`` are named) — or ``["ref"]`` when that leaves
+    none (an explicit CPU without devices).  Windows: the
     full batch and half of it; depths 2 and 3; matrix depths 1 and 2 on
     stream-matrix presets (PASTA), else 1; reductions lazy and eager.
     Explicit sequences override any dimension.
@@ -326,7 +330,7 @@ def candidate_plans(params: Union[CipherParams, str], lanes: int, *,
         producers = compatible_producers(params)
     if engines is None:
         dev = resolve_device(device)
-        engines = [n for n, c in engine_caps().items()
+        engines = [n for n, c in engine_caps(devices=devices).items()
                    if c.available and dev.type in c.device_types
                    and n not in ORACLES]
         if not engines:
@@ -350,7 +354,7 @@ def candidate_plans(params: Union[CipherParams, str], lanes: int, *,
 
 def _window_latencies(params: CipherParams, plan: StreamPlan,
                       sessions: int, n_windows: int, reps: int, seed: int,
-                      dev: torch.device) -> List[float]:
+                      dev: torch.device, devices=None) -> List[float]:
     """Seconds per timed window of one plan; the pool, farm and producer
     live only inside this call."""
 
@@ -361,7 +365,8 @@ def _window_latencies(params: CipherParams, plan: StreamPlan,
     batch = CipherBatch(params, seed=seed, producer=plan.producer,
                         device=dev)
     batch.add_sessions(sessions)
-    farm = KeystreamFarm(batch, engine=plan.engine, variant=plan.variant,
+    farm = KeystreamFarm(batch, engine=plan.engine, devices=devices,
+                         variant=plan.variant,
                          depth=plan.depth, matrix_depth=plan.matrix_depth,
                          reduction=plan.reduction)
     total = plan.window * n_windows
@@ -391,7 +396,8 @@ def _window_latencies(params: CipherParams, plan: StreamPlan,
 
 def measure_plan(params: Union[CipherParams, str], plan: StreamPlan,
                  lanes: int, *, sessions: int = 2, n_windows: int = 4,
-                 reps: int = 2, seed: int = 0, device=None) -> float:
+                 reps: int = 2, seed: int = 0, device=None,
+                 devices=None) -> float:
     """Per-window p50 latency (seconds) of one plan on the real farm loop.
 
     Runs ``n_windows`` windows of ``plan.window`` lanes over a
@@ -406,7 +412,7 @@ def measure_plan(params: Union[CipherParams, str], plan: StreamPlan,
     params = _coerce_params(params)
     dev = resolve_device(device)
     lat = _window_latencies(params, plan, sessions, n_windows, reps, seed,
-                            dev)
+                            dev, devices)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return float(np.percentile(np.asarray(lat), 50))
@@ -421,23 +427,28 @@ def autotune(params: Union[CipherParams, str], lanes: int, *,
              depths: Optional[Sequence[int]] = None,
              reductions: Optional[Sequence[str]] = None,
              cache_path=None, force: bool = False,
-             verbose: bool = False, device=None) -> StreamPlan:
+             verbose: bool = False, device=None,
+             devices=None) -> StreamPlan:
     """Measure every candidate plan and return (and persist) the winner.
 
     A valid persisted plan for (preset, lanes, host, device) is returned
     as it is, without timing, unless ``force=True``.  Selection is by
     measured per-window p50; ties break toward the earlier candidate.
+    ``devices`` adds the ``sharded`` engine to the grid and measures it
+    over those devices.
     """
     params = _coerce_params(params)
     dev = resolve_device(device)
     if not force:
-        cached = load_plan(params, lanes, cache_path, device=dev)
+        cached = load_plan(params, lanes, cache_path, device=dev,
+                           devices=devices)
         if cached is not None:
             if verbose:
                 print(f"[tuner] cache hit for {params.name}/lanes={lanes}: "
                       f"{cached.describe()}")
             return cached
-    plans = candidate_plans(params, lanes, device=dev, producers=producers,
+    plans = candidate_plans(params, lanes, device=dev, devices=devices,
+                            producers=producers,
                             engines=engines, variants=variants,
                             windows=windows, depths=depths,
                             reductions=reductions)
@@ -448,7 +459,8 @@ def autotune(params: Union[CipherParams, str], lanes: int, *,
     measurements: List[dict] = []
     for plan in plans:
         p50 = measure_plan(params, plan, lanes, sessions=sessions,
-                           n_windows=n_windows, reps=reps, device=dev)
+                           n_windows=n_windows, reps=reps, device=dev,
+                           devices=devices)
         measurements.append({**plan.to_json(), "p50_ms": p50 * 1e3})
         if verbose:
             print(f"[tuner] {plan.describe():60s} p50={p50 * 1e3:8.3f} ms")

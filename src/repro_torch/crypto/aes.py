@@ -2,8 +2,9 @@
 
 The port's copy of `repro.crypto.aes`: the S-box and GF(2^8) tables are
 derived (not typed in) at import with numpy, the key schedule runs
-host-side in numpy, and :func:`aes128_encrypt_blocks` is the plain torch
-version of the CUDA AES kernel (`kernels/aes`).  A block is 16 bytes in
+host-side in numpy, :func:`aes128_encrypt_blocks` is the plain torch
+version of the CUDA AES kernel (`kernels/aes`), and
+:func:`aes_ctr_keystream` runs that kernel's CTR entry.  A block is 16 bytes in
 FIPS column-major state order: byte i is state[row=i%4, col=i//4].
 """
 
@@ -69,6 +70,9 @@ _SHIFTROWS_PERM = np.array(
     dtype=np.int32,
 )
 
+SBOX = torch.as_tensor(_SBOX_NP)                 # (256,) uint8
+SHIFTROWS_PERM = torch.as_tensor(_SHIFTROWS_PERM)  # (16,) int32
+
 
 # --------------------------------------------------------------------------
 # Key schedule (host-side numpy; round keys are static per cipher instance).
@@ -126,3 +130,24 @@ def aes128_encrypt_blocks(blocks, round_keys):
     s = sbox[s.long()]
     s = s[..., perm]
     return s ^ rk[..., 10, :]
+
+
+def aes_ctr_keystream(round_keys, nonce96, counter0: int, nblocks: int,
+                      device=None):
+    """AES-CTR keystream: (nblocks, 16) uint8 on ``device`` (None = the
+    card).
+
+    Counter block = nonce (12 bytes) || big-endian 32-bit counter, from
+    ``counter0`` up, wrapping mod 2^32 as the reference's uint32 counter
+    does.  On the card this is the CUDA AES kernel's CTR entry; on the
+    CPU its plain version.
+    """
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.aes.ops import aes_ctr_kernel_apply
+
+    dev = resolve_device(device)
+    nonce = np.asarray(nonce96, dtype=np.uint8).reshape(12)
+    ctrs = torch.arange(counter0, counter0 + nblocks, dtype=torch.int64,
+                        device=dev) & 0xFFFFFFFF
+    return aes_ctr_kernel_apply(np.asarray(round_keys, np.uint8), nonce,
+                                ctrs)

@@ -19,6 +19,31 @@ import torch
 from repro_torch.crypto.modmath import Modulus
 from repro_torch.device import upload
 
+#: Candidates per constant of :func:`uniform_mod_q` (the reference's
+#: fixed overdraw: P(all rejected) < 4e-15 per constant).
+OVERDRAW = 4
+
+
+def uniform_mod_q(words, mod: Modulus):
+    """Map XOF words to uniform elements of Z_q by masked rejection.
+
+    words: (..., n, OVERDRAW) int64 values in [0, 2^32), OVERDRAW
+    candidates per output.  Returns (..., n) int64 in [0, q): the first
+    accepted candidate, or the last candidate mod q when none is.
+    """
+    if words.shape[-1] != OVERDRAW:
+        raise ValueError(f"expected trailing overdraw dim {OVERDRAW}")
+    cand = words & ((1 << mod.bits) - 1)
+    ok = cand < mod.q
+    first = torch.argmax(ok.to(torch.int8), dim=-1, keepdim=True)
+    picked = torch.gather(cand, -1, first)[..., 0]
+    return torch.where(ok.any(-1), picked, cand[..., -1] % mod.q)
+
+
+def words_needed_uniform(n: int) -> int:
+    return n * OVERDRAW
+
+
 # Safety pad for the stream sampler: P(more than STREAM_PAD rejections out
 # of a few hundred draws at p < 2.5e-4) is < 1e-40.
 STREAM_PAD = 16
@@ -93,3 +118,7 @@ def discrete_gaussian(words_hi, words_lo, table: DGaussTable):
     idx = ge.to(torch.int64).sum(-1)  # in [0, 2*tail]
     return idx - table.tail
 
+
+
+def words_needed_gauss(n: int) -> int:
+    return 2 * n

@@ -5,6 +5,9 @@ op table the kernel interprets — one kernel binary per state size serves
 every preset, variant and reduction mode.  :func:`keystream_kernel_apply`
 has the reference's signature; CPU tensors take the plain version
 (`kernels/keystream/ref.py`), CUDA tensors launch the kernel or raise.
+:func:`keystream_kernel_sharded` splits the lanes over a list of devices
+(the reference's mesh), and :func:`presto_keystream` is the producer ->
+fused-kernel pipeline of one cipher.
 
 Layout: the kernel reads the producer's row-major (lanes, words) int64
 planes where they lie and writes the (lanes, l) int64 keystream the
@@ -14,6 +17,7 @@ engine returns, so the wrapper makes no copy on either side
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -191,6 +195,65 @@ def keystream_kernel_apply(params: CipherParams, key, rc, noise=None, *,
                              mats=mats, reduction=reduction)
     ops = kernel_operands(params, key, rc, noise, variant=variant, mats=mats)
     return launch_keystream(params, ops, variant=variant, reduction=reduction)
+
+
+def keystream_kernel_sharded(params: CipherParams, key, rc, noise=None, *,
+                             devices=None, variant: str = "normal",
+                             mats=None, reduction: str = DEFAULT_REDUCTION):
+    """Lane-sharded fused consumer: :func:`keystream_kernel_apply` with
+    its lanes split over ``devices``.
+
+    The lanes are padded to a multiple of ``len(devices)`` with zero
+    constants; rc, noise and mats are split into one slice per device and
+    the key copied to each; each device runs the kernel on its slice on
+    its current stream (CPU devices run the plain version); the slices
+    are gathered on ``devices[0]`` and the padding trimmed.  There is no
+    other traffic between devices.  A list may name one device more than
+    once.  With ``devices`` None or of length 1 this is
+    :func:`keystream_kernel_apply` (on ``devices[0]``).
+    """
+    devs = [torch.device(d) for d in (devices or [rc.device])]
+    lanes = rc.shape[0]
+    per = -(-lanes // len(devs))
+    pad = per * len(devs) - lanes
+
+    def split(x):
+        if x is None:
+            return [None] * len(devs)
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return [x[i * per:(i + 1) * per] for i in range(len(devs))]
+
+    key = torch.as_tensor(key)
+    outs = []
+    for d, rc_s, noise_s, mats_s in zip(devs, split(rc), split(noise),
+                                        split(mats)):
+        with torch.cuda.device(d) if d.type == "cuda" \
+                else contextlib.nullcontext():
+            outs.append(keystream_kernel_apply(
+                params, key.to(d), rc_s.to(d),
+                None if noise_s is None else noise_s.to(d),
+                variant=variant,
+                mats=None if mats_s is None else mats_s.to(d),
+                reduction=reduction))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o.to(devs[0]) for o in outs])[:lanes]
+
+
+def presto_keystream(cipher, block_ctrs):
+    """The full pipeline for one :class:`~repro_torch.core.cipher.Cipher`:
+    its producer (on the card, the ``aes_xof`` kernel and the samplers),
+    then the fused consumer (on the card, the ``cuda`` engine's keystream
+    kernel; on a CPU cipher, the ``ref`` engine).  Returns (lanes, l)
+    int64 keystream."""
+    from repro_torch.core.engine import make_engine  # engine imports us
+
+    eng = make_engine("cuda" if cipher.device.type == "cuda" else "ref",
+                      cipher.params, cipher.key, device=cipher.device)
+    consts = cipher.round_constant_stream(block_ctrs)
+    return eng.keystream_from_constants(consts["rc"], consts["noise"],
+                                        consts.get("mats"))
 
 
 def work_per_lane(params: CipherParams, variant: str = "normal") -> dict:

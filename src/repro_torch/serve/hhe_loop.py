@@ -32,9 +32,11 @@ import torch
 from repro_torch.core.cipher import (
     CipherBatch,
     StreamSession,
+    add_words,
     as_int64,
-    decode_fixed,
-    encode_fixed,
+    decrypt_fixed,
+    encrypt_fixed,
+    sub_words,
 )
 from repro_torch.core.farm import KeystreamFarm, WindowPlan, pack_windows
 
@@ -113,7 +115,8 @@ class HHEServer:
 
     ``engine`` picks the farm's consumer backend (any registered
     `repro_torch.core.engine` name or instance; "auto" by the pool's
-    device); ``depth`` sets the farm's producer→consumer FIFO depth and
+    device); ``devices`` names the devices the ``sharded`` engine splits
+    each window over (the reference's ``mesh``); ``depth`` sets the farm's producer→consumer FIFO depth and
     ``matrix_depth`` its matrix-plane prefetch depth (PASTA); ``variant``
     and ``reduction`` pick the schedule orientation plan and reduction
     mode, bit-exact either way.  ``plan`` applies a measured
@@ -146,7 +149,8 @@ class HHEServer:
     DEFAULT_WINDOW = 256
 
     def __init__(self, batch: CipherBatch, window: Optional[int] = None,
-                 engine=None, *, variant: Optional[str] = None,
+                 engine=None, *, devices=None,
+                 variant: Optional[str] = None,
                  depth: Optional[int] = None,
                  matrix_depth: Optional[int] = None,
                  reduction: Optional[str] = None, plan=None,
@@ -176,8 +180,9 @@ class HHEServer:
         self.deadline_s = deadline_s
         self.max_pending_lanes = max_pending_lanes
         self.overload = overload
-        self.farm = KeystreamFarm(batch, engine=engine, variant=variant,
-                                  depth=depth, matrix_depth=matrix_depth,
+        self.farm = KeystreamFarm(batch, engine=engine, devices=devices,
+                                  variant=variant, depth=depth,
+                                  matrix_depth=matrix_depth,
                                   reduction=reduction, plan=plan)
         # ONE long-lived pipeline: windows fired by different scheduling
         # events still overlap producer-vs-consumer across the FIFO
@@ -370,17 +375,16 @@ class HHEServer:
         if req.op == "keystream":
             result = entry.rows
         elif req.op == "encrypt":
-            result = mod.add(encode_fixed(mod, req.payload, req.delta),
-                             z).numpy().astype(np.uint32)
+            result = encrypt_fixed(mod, req.payload, z,
+                                   req.delta).numpy().astype(np.uint32)
         elif req.op == "encrypt_tokens":        # exact Z_q, no encoding
-            result = mod.add(as_int64(req.payload, "cpu"),
-                             z).numpy().astype(np.uint32)
+            result = add_words(mod, as_int64(req.payload, "cpu"),
+                               z).numpy().astype(np.uint32)
         elif req.op == "decrypt_tokens":
-            result = mod.sub(as_int64(req.payload, "cpu"),
-                             z).numpy().astype(np.int32)
+            result = sub_words(mod, as_int64(req.payload, "cpu"),
+                               z).numpy().astype(np.int32)
         else:  # decrypt
-            mq = mod.sub(as_int64(req.payload, "cpu"), z)
-            result = decode_fixed(mod, mq, req.delta).numpy()
+            result = decrypt_fixed(mod, req.payload, z, req.delta).numpy()
         lat = t_done - entry.t_submit
         self.latencies.append(lat)
         return HHEResponse(request=req, result=result,

@@ -420,3 +420,94 @@ def test_card_transcipher_depth_and_slots(cuda, name, depth, tol):
     cpu = make_cipher(name, seed=7, device="cpu")
     cpu_slots, _ = transcipher(cpu, ct.cpu(), ctrs)
     _exact(slots.cpu(), cpu_slots)
+
+
+# ---------------------------------------------------------------------------
+# the HHE surface: encode edges, presto_keystream, aes_ctr_keystream, the
+# sharded engine
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hera-128a", "rubato-128l", "pasta-128l"])
+def test_card_encode_edges_are_the_reference_words(cuda, name):
+    """Out-of-range, infinite and NaN plaintexts encrypt on the card to the
+    JAX reference's words and decrypt to its floats (the digests in
+    chip_smoke.py), as on the CPU: no device cast decides them."""
+    cs = _chip_smoke()
+    ct, pt = cs.encode_edges(cuda, name)
+    assert ct.is_cuda and pt.is_cuda
+    want = cs.ENCODE_GOLDEN[name]
+    assert ct[:, 0].cpu().tolist() == want["word0"]
+    assert cs.digest(ct) == want["ct"]
+    assert cs.digest(pt.cpu().numpy().view(np.int32)) == want["pt"]
+    cpu_ct, cpu_pt = cs.encode_edges(torch.device("cpu"), name)
+    _exact(ct, cpu_ct)
+    np.testing.assert_array_equal(pt.cpu().numpy().view(np.int32),
+                                  cpu_pt.numpy().view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kind", sorted(GOLDEN))
+def test_card_presto_keystream_golden_digests(cuda, name, kind):
+    import dataclasses
+
+    from repro_torch.core.cipher import Cipher
+    from repro_torch.kernels.keystream.ops import presto_keystream
+
+    c = make_cipher(name, seed=123, device=cuda)
+    if kind == "plain" and c.params.n_noise:
+        c = Cipher(dataclasses.replace(c.params, sigma=0.0), c.key,
+                   c.nonce, device=cuda)
+    before = dict(build.LAUNCHES)
+    z = presto_keystream(c, np.arange(4))
+    assert build.LAUNCHES["keystream"] > before["keystream"]
+    assert build.LAUNCHES["aes_xof"] > before["aes_xof"]
+    digest = hashlib.sha256(
+        z.cpu().numpy().astype("<u4").tobytes()).hexdigest()
+    assert digest == GOLDEN[(name, kind)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counter0,nblocks", [(0, 1), (5, 1000),
+                                              (2**32 - 7, 4096)])
+def test_card_aes_ctr_keystream_matches_plain(cuda, counter0, nblocks):
+    from repro_torch.crypto.aes import aes_ctr_keystream
+
+    rng = np.random.default_rng(nblocks)
+    rk = aes128_key_expand(rng.integers(0, 256, 16, dtype=np.uint8))
+    nonce = rng.integers(0, 256, 12, dtype=np.uint8)
+    before = build.LAUNCHES["aes_ctr"]
+    got = aes_ctr_keystream(rk, nonce, counter0, nblocks, device=cuda)
+    assert got.is_cuda and build.LAUNCHES["aes_ctr"] == before + 1
+    _exact(got, aes_ctr_keystream(rk, nonce, counter0, nblocks,
+                                  device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS)
+def test_card_sharded_engine_matches_cuda_engine(cuda, name):
+    cb = CipherBatch(name, seed=6, device=cuda)
+    cb.add_sessions(3)
+    rng = np.random.default_rng(6)
+    k = cb.round_constant_stream(rng.integers(0, 3, 4097),
+                                 rng.integers(0, 2**16, 4097))
+    for variant in ("normal", "alternating"):
+        for reduction in ("lazy", "eager"):
+            want_eng = cb.make_engine("cuda", variant=variant,
+                                      reduction=reduction)
+            eng = cb.make_engine("sharded", devices=[cuda] * 3,
+                                 variant=variant, reduction=reduction)
+            for lanes in (1, 31, 4097, 4096):
+                part = {key: None if v is None else v[:lanes]
+                        for key, v in k.items()}
+                _exact(eng(part), want_eng(part))

@@ -27,6 +27,7 @@ from repro_torch.core.tuner import (  # noqa: E402
     load_plan,
     measure_plan,
 )
+from repro_torch.crypto.aes import aes_ctr_keystream  # noqa: E402
 from repro_torch.crypto.xof import threefry_xof_words  # noqa: E402
 from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
@@ -48,7 +49,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.core.transcipher", "repro_torch.data.encrypted",
             "repro_torch.analysis", "repro_torch.analysis.bounds",
             "repro_torch.analysis.lint", "repro_torch.analysis.cost",
-            "repro_torch.analysis.__main__"} <= set(mods)
+            "repro_torch.analysis.__main__", "repro_torch.core.hera",
+            "repro_torch.core.rubato", "repro_torch.core.pasta"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -64,10 +66,8 @@ def test_every_module_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))
-def test_no_file_imports_jax_or_the_reference(path):
-    tree = ast.parse((PKG / path).read_text())
+def _assert_no_jax_or_reference(path: Path):
+    tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         names = []
         if isinstance(node, ast.Import):
@@ -77,6 +77,18 @@ def test_no_file_imports_jax_or_the_reference(path):
         for n in names:
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))
+def test_no_file_imports_jax_or_the_reference(path):
+    _assert_no_jax_or_reference(PKG / path)
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart.py",
+                                  "torch_keystream_farm.py"])
+def test_no_port_example_imports_jax_or_the_reference(name):
+    _assert_no_jax_or_reference(PKG.parents[1] / "examples" / name)
 
 
 @pytest.fixture
@@ -102,11 +114,15 @@ def no_cuda(monkeypatch):
     lambda: FarmEncryptedSource(None, CipherBatch("hera-80")),
     lambda: measured_depth(get_params("hera-80")),
     lambda: MachineModel.for_backend(),
+    lambda: aes_ctr_keystream(np.zeros((11, 16), np.uint8),
+                              np.zeros(12, np.uint8), 0, 4),
+    lambda: make_engine("sharded", get_params("hera-80"), np.ones(16),
+                        devices=["cuda"]),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
         "ServeClient", "default", "cuda", "autotune", "measure_plan",
         "load_plan", "FarmEncryptedSource", "measured_depth",
-        "MachineModel"])
+        "MachineModel", "aes_ctr_keystream", "sharded_engine"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

@@ -73,7 +73,26 @@ Phases (any failure exits non-zero; nothing is caught):
    path; the tuner's grid with and without devices, one sharded plan
    measured and a cached one rejected without devices; and both port
    examples run as child processes (``examples/torch_quickstart.py``,
-   ``examples/torch_keystream_farm.py --lanes 4096``), exit 0 required.
+   ``examples/torch_keystream_farm.py --lanes 4096``), exit 0 required;
+11. the LLM serving path (TF32 off from here on): ``python -m
+   repro_torch.launch.serve``'s ``main`` in-process at granite-3-8b's full
+   config (40 layers, d 4096, 8.17 B parameters, bf16 serving weights)
+   with ``--batch 4 --prompt-len 32 --gen 16 --encrypted`` under
+   rubato-128l and pasta-128l, both round trips exact, launch counts
+   reset just before and read just after each (the "llm_serve" path,
+   keystream and aes_xof above 0); the same weights in float32, and
+   mamba2-2.7b at its full config (64 layers) in float32, each a prefill
+   over 32 tokens and 3 decode steps against one forward over the 35
+   (max |d logit| <= 1e-3 and <= 5e-3, ``TEACHER_TOL``); granite-3-8b
+   in bf16 (printed, not checked) with the steady prefill and decode
+   times beside the decode bound (serving weights plus KV cache over the
+   HBM rate); the bf16 gap at full width cut to 1-16 layers beside its
+   40, and mamba2-2.7b's float32 gap at 1, 4, 16 layers beside its 64
+   (printed: whether each grows with depth); mamba2-2.7b at full config
+   and mixtral-8x7b at full width cut to 2 layers through ``serve_loop``
+   (prefill + 8 decode steps, finite logits, times); and every causal
+   arch at its smoke config, float32 logits of prefill + 3 decode steps
+   on the card against the CPU on the same weights (<= 1e-4).
 
 The tuner's cache is a fresh file in a temporary directory for the whole
 run, so no cache left on the machine steers any phase.
@@ -1718,6 +1737,381 @@ def examples_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the LLM serving path
+# ---------------------------------------------------------------------------
+LLM_ARCH = "granite-3-8b"
+LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 32, 16
+LLM_CIPHERS = ("rubato-128l", "pasta-128l")
+LLM_PATH = ("keystream", "aes_xof")
+LLM_SEED = 11
+TEACHER_STEPS = 3
+# float32 logits of decode against teacher forcing at full config, TF32
+# off: the two sum in other orders, and the difference grows with depth
+# (BF16_DEPTHS and SSM_DEPTHS print it).  mamba2-2.7b's 64 SSM layers
+# read 2.35e-3 at |logit| <= 5.2 on an H100; a wrong decode state (conv
+# taps, the order of decay and input, a dropped state) moves logits by
+# whole units.
+TEACHER_TOL = {LLM_ARCH: 1e-3, "mamba2-2.7b": 5e-3}
+# mamba2-2.7b at full width cut to these depths (and its full 64): the
+# float32 gap, a finding
+SSM_DEPTHS = (1, 4, 16)
+# granite-3-8b at full width cut to these depths (and its full 40): the
+# bf16 gap against teacher forcing and against float32, a finding
+BF16_DEPTHS = (1, 2, 4, 8, 16)
+# the other families at full width: (arch, num_layers cut or None);
+# mixtral-8x7b's 32 layers of float32 masters do not fit one card
+LLM_FAMILIES = (("mamba2-2.7b", None), ("mixtral-8x7b", 2))
+FAMILY_STEPS = 8
+SMOKE_TOL = 1e-4       # card against CPU, float32, TF32 off
+SMOKE_STEPS = 3
+
+
+def llm_config(arch: str, **changes):
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+def decode_bound_ms(weight_bytes: int, cache_bytes: int) -> float:
+    """Least ms of one decode step: every serving weight and the whole KV
+    cache read once over the HBM rate."""
+    return (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def fresh_memory() -> None:
+    """Drop what earlier work left in the allocator, and restart the peak."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def llm_serve_phase(dev) -> tuple:
+    """11a: ``repro_torch.launch.serve.main`` in-process at granite-3-8b's
+    full config, ``--encrypted`` under each of LLM_CIPHERS; main asserts
+    that the farm decrypts the prompts exactly and that every response
+    decrypts back.  Launches are counted around each call, summed as the
+    "llm_serve" path."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    out, launches = {}, dict.fromkeys(SOURCES, 0)
+    for cipher in LLM_CIPHERS:
+        fresh_memory()
+        argv = ["--arch", LLM_ARCH, "--batch", str(LLM_BATCH),
+                "--prompt-len", str(LLM_PROMPT), "--gen", str(LLM_GEN),
+                "--encrypted", "--cipher", cipher, "--seed", str(LLM_SEED),
+                "--device", str(dev)]
+        build.reset_launches()                    # the path starts
+        r = serve.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)             # the path ends
+        for k in SOURCES:
+            launches[k] += counts[k]
+        for k in LLM_PATH:
+            check(counts[k] > 0, f"llm_serve {cipher}: kernel {k} not "
+                  "launched")
+        check(r["gen"].shape == (LLM_BATCH, LLM_GEN),
+              f"llm_serve {cipher}: generated {r['gen'].shape}")
+        step_ms = r["decode_ms"] / r["decode_steps"]
+        out[cipher] = {
+            "weight_bytes": r["weight_bytes"], "cache_bytes": r["cache_bytes"],
+            "prefill_ms": r["prefill_ms"], "decode_ms_per_step": step_ms,
+            "tokens_per_s": r["tokens_per_s"],
+            "decode_bound_ms": decode_bound_ms(r["weight_bytes"],
+                                               r["cache_bytes"]),
+            "hhe_p50_ms": r["hhe"]["p50_ms"], "hhe_p99_ms": r["hhe"]["p99_ms"],
+            "hhe_requests": r["hhe"]["count"],
+            "launches": {k: counts[k] for k in SOURCES},
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  {LLM_ARCH} --encrypted --cipher {cipher}: round trips exact; "
+            f"prefill {r['prefill_ms']:.2f} ms (first call), decode "
+            f"{step_ms:.2f} ms/step against a "
+            f"{out[cipher]['decode_bound_ms']:.2f} ms bound, "
+            f"{r['tokens_per_s']:.1f} tok/s; HHE p50/p99 "
+            f"{r['hhe']['p50_ms']:.2f}/{r['hhe']['p99_ms']:.2f} ms; weights "
+            f"{r['weight_bytes'] / 1e9:.2f} GB; peak "
+            f"{out[cipher]['peak_gb']:.2f} GiB; launches "
+            f"{json.dumps(out[cipher]['launches'])}")
+    return out, launches
+
+
+def _greedy_logits(cfg, model, toks, prompt: int, steps: int):
+    """Logits of a prefill over ``toks[:, :prompt]`` and of ``steps``
+    decode steps fed ``toks`` after it (teacher forced)."""
+    from repro_torch.models import model as M
+
+    lg, cache, cur = M.prefill(cfg, model, {"tokens": toks[:, :prompt]},
+                               prompt + steps)
+    out = [lg[:, 0]]
+    for i in range(steps):
+        cur += 1
+        lg, cache = M.decode_step(cfg, model, cache,
+                                  toks[:, prompt + i:prompt + i + 1], cur)
+        out.append(lg[:, 0])
+    return out
+
+
+def step_kernels(step, reps: int = 3) -> dict:
+    """The card's kernels in one call of ``step`` by ``torch.profiler``:
+    their count, their summed device ms, and the six names that take the
+    most of it (None where the profiler recorded no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"kernels_per_step": None, "kernel_ms_per_step": None,
+                "top": None}
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"kernels_per_step": len(kernels) / reps,
+            "kernel_ms_per_step": sum(by_name.values()) / reps / 1e3,
+            "top": [[name[:80], us / reps / 1e3] for name, us in top]}
+
+
+def _teacher(cfg, toks):
+    """A model of ``cfg`` from LLM_SEED, cast for serving: its logits of
+    one forward over ``toks`` (float32, on the host) and the max abs
+    error of prefill over LLM_PROMPT tokens plus TEACHER_STEPS decode
+    steps against them, per position."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    model = M.init_params(cfg, seed=LLM_SEED, device=toks.device)
+    model.cast_for_serving()
+    with torch.inference_mode():
+        full, _ = M.forward_train(cfg, model, {"tokens": toks})
+        steps = _greedy_logits(cfg, model, toks, LLM_PROMPT, TEACHER_STEPS)
+    errs = [float((s - full[:, LLM_PROMPT - 1 + i]).abs().max())
+            for i, s in enumerate(steps)]
+    return model, full.cpu(), errs
+
+
+def _teacher_tokens(cfg, dev):
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab, (LLM_BATCH, LLM_PROMPT + TEACHER_STEPS)), device=dev)
+
+
+def teacher_phase(dev) -> dict:
+    """11b: each arch of TEACHER_TOL at its full config in float32 (TF32
+    off): prefill over LLM_PROMPT tokens and TEACHER_STEPS decode steps
+    against one forward over all of them (checked); then granite-3-8b the
+    same in bf16 on the serving weights (a finding), with that model's
+    steady prefill and decode times at the serving shape; then the bf16
+    gap at BF16_DEPTHS and mamba2-2.7b's float32 gap at SSM_DEPTHS
+    (findings: whether each grows with depth)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    out, peak = {}, 0.0
+    for arch, tol in TEACHER_TOL.items():
+        fresh_memory()
+        cfg = llm_config(arch, dtype="float32")
+        model, full, errs = _teacher(cfg, _teacher_tokens(cfg, dev))
+        out[arch] = {"float32": {
+            "max_abs_err": max(errs), "per_step": errs,
+            "logit_absmax": float(full.abs().max()),
+            "weight_bytes": model.weight_bytes()}}
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  {arch} float32: prefill + {TEACHER_STEPS} decode steps "
+            f"against teacher forcing: max |d logit| {max(errs):.3g} "
+            f"(|logit| <= {float(full.abs().max()):.3g})")
+        check(max(errs) <= tol, f"{arch} float32 decode differs from "
+              f"teacher forcing by {max(errs)}")
+        if arch == LLM_ARCH:
+            full32 = full
+        del model, full
+
+    fresh_memory()
+    cfg = llm_config(LLM_ARCH, dtype="bfloat16")
+    toks = _teacher_tokens(cfg, dev)
+    model, full, errs = _teacher(cfg, toks)
+    r = {"max_abs_err": max(errs), "per_step": errs,
+         "logit_absmax": float(full.abs().max()),
+         "vs_float32": float((full - full32).abs().max()),
+         "weight_bytes": model.weight_bytes()}
+    max_len = LLM_PROMPT + LLM_GEN
+    prefill = lambda: M.prefill(  # noqa: E731
+        cfg, model, {"tokens": toks[:, :LLM_PROMPT]}, max_len)
+    with torch.inference_mode():
+        _, cache, cur = prefill()
+        r["prefill_ms"] = time_ms(prefill, 3)
+        tok = toks[:, LLM_PROMPT:LLM_PROMPT + 1]
+        step = lambda: M.decode_step(  # noqa: E731
+            cfg, model, cache, tok, cur + 1)
+        r["decode_ms_per_step"] = time_ms(step, 10)
+        # the card's own time for a step, without the host's dispatch
+        # between its launches
+        r["decode_graph_ms"] = graph_ms(step, 5)
+        r["decode_kernels"] = step_kernels(step)
+    r["cache_bytes"] = M.cache_bytes(cache)
+    r["decode_bound_ms"] = decode_bound_ms(r["weight_bytes"],
+                                           r["cache_bytes"])
+    peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    out[LLM_ARCH]["bfloat16"] = r
+    log(f"  {LLM_ARCH} bfloat16: the same: max |d logit| "
+        f"{r['max_abs_err']:.3g} (|logit| <= {r['logit_absmax']:.3g}); "
+        f"against float32 {r['vs_float32']:.3g}; steady prefill "
+        f"{r['prefill_ms']:.2f} ms, decode {r['decode_ms_per_step']:.2f} "
+        f"ms/step ({r['decode_graph_ms']:.2f} ms by CUDA-graph replay) "
+        f"against a {r['decode_bound_ms']:.2f} ms bound; kernels a step "
+        f"{json.dumps(r['decode_kernels'])}")
+    del model, full, cache
+
+    depth = {}
+    for layers in BF16_DEPTHS:
+        fresh_memory()
+        d = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = llm_config(LLM_ARCH, num_layers=layers, dtype=dt)
+            model, full, errs = _teacher(cfg, toks)
+            d[dt] = {"teacher_err": max(errs),
+                     "logit_absmax": float(full.abs().max())}
+            if dt == "float32":
+                ref = full
+            else:
+                d[dt]["vs_float32"] = float((full - ref).abs().max())
+            del model, full
+        depth[layers] = d
+    depth[llm_config(LLM_ARCH).num_layers] = {
+        "float32": {"teacher_err": out[LLM_ARCH]["float32"]["max_abs_err"],
+                    "logit_absmax": out[LLM_ARCH]["float32"]["logit_absmax"]},
+        "bfloat16": {"teacher_err": r["max_abs_err"],
+                     "logit_absmax": r["logit_absmax"],
+                     "vs_float32": r["vs_float32"]}}
+    out["bf16_by_depth"] = depth
+    log(f"  {LLM_ARCH} at full width by depth (layers: bf16 against teacher "
+        f"forcing / bf16 against float32 / float32 against teacher forcing "
+        f"/ |logit| max): " + "; ".join(
+            f"{n}: {v['bfloat16']['teacher_err']:.3g} / "
+            f"{v['bfloat16']['vs_float32']:.3g} / "
+            f"{v['float32']['teacher_err']:.3g} / "
+            f"{v['bfloat16']['logit_absmax']:.3g}"
+            for n, v in depth.items()))
+
+    ssm = {}
+    for layers in SSM_DEPTHS:
+        fresh_memory()
+        cfg = llm_config("mamba2-2.7b", num_layers=layers, dtype="float32")
+        model, full, errs = _teacher(cfg, _teacher_tokens(cfg, dev))
+        ssm[layers] = {"teacher_err": max(errs),
+                       "logit_absmax": float(full.abs().max())}
+        del model, full
+    ssm[llm_config("mamba2-2.7b").num_layers] = {
+        "teacher_err": out["mamba2-2.7b"]["float32"]["max_abs_err"],
+        "logit_absmax": out["mamba2-2.7b"]["float32"]["logit_absmax"]}
+    out["ssm_float32_by_depth"] = ssm
+    log("  mamba2-2.7b at full width by depth (layers: float32 against "
+        "teacher forcing / |logit| max): " + "; ".join(
+            f"{n}: {v['teacher_err']:.3g} / {v['logit_absmax']:.3g}"
+            for n, v in ssm.items()))
+    out["peak_gb"] = peak
+    return out
+
+
+def families_phase(dev) -> dict:
+    """11c: mamba2-2.7b at full config and mixtral-8x7b at full width cut
+    to 2 layers, each serving weights through ``serve_loop``: a prefill
+    over LLM_PROMPT tokens and FAMILY_STEPS greedy decode steps, finite
+    logits; steady prefill and decode times beside the decode bound."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
+
+    out = {}
+    rng = np.random.default_rng(13)
+    for arch, layers in LLM_FAMILIES:
+        fresh_memory()
+        cfg = llm_config(arch, **({"num_layers": layers} if layers else {}))
+        max_len = LLM_PROMPT + FAMILY_STEPS + 1
+        prefill = make_prefill_step(cfg, max_len, device=dev)
+        decode = make_decode_step(cfg, device=dev)
+        model = M.init_params(cfg, seed=LLM_SEED, device=dev)
+        model.cast_for_serving()
+        prompts = rng.integers(0, cfg.vocab, (LLM_BATCH, LLM_PROMPT))
+        logits, cache, cur = prefill(model, {"tokens": prompts})
+        check(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        for _ in range(FAMILY_STEPS):
+            cur += 1
+            logits, cache = decode(model, cache, tok, cur)
+            check(bool(torch.isfinite(logits).all()),
+                  f"{arch}: decode logits at {cur}")
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        r = {"num_layers": cfg.num_layers,
+             "weight_bytes": model.weight_bytes(),
+             "cache_bytes": M.cache_bytes(cache),
+             "prefill_ms": time_ms(lambda: prefill(model,
+                                                   {"tokens": prompts}), 3),
+             "decode_ms_per_step": time_ms(
+                 lambda: decode(model, cache, tok, cur + 1), 10)}
+        r["decode_bound_ms"] = decode_bound_ms(r["weight_bytes"],
+                                               r["cache_bytes"])
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out[arch] = r
+        log(f"  {arch} ({cfg.num_layers} layers): prefill + {FAMILY_STEPS} "
+            f"decode steps, logits finite; steady prefill "
+            f"{r['prefill_ms']:.2f} ms, decode {r['decode_ms_per_step']:.2f} "
+            f"ms/step against a {r['decode_bound_ms']:.2f} ms bound; weights "
+            f"{r['weight_bytes'] / 1e9:.2f} GB, peak {r['peak_gb']:.2f} GiB")
+        del model, cache
+    return out
+
+
+def smoke_archs_phase(dev) -> dict:
+    """11c: every causal arch at its smoke config in float32 (TF32 off),
+    the same weights on the CPU and on the card: prefill plus SMOKE_STEPS
+    decode steps, logits held within SMOKE_TOL."""
+    import torch
+
+    from repro_torch.configs.base import get_config, list_archs
+    from repro_torch.models import model as M
+
+    out = {}
+    rng = np.random.default_rng(14)
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        if not cfg.causal:
+            continue
+        model = M.init_params(cfg, seed=LLM_SEED, device="cpu")
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16 + SMOKE_STEPS)))
+        with torch.inference_mode():
+            want = _greedy_logits(cfg, model, toks, 16, SMOKE_STEPS)
+            model.to(dev)
+            got = _greedy_logits(cfg, model, toks.to(dev), 16, SMOKE_STEPS)
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        check(err <= SMOKE_TOL, f"{arch} smoke: card differs from the CPU by "
+              f"{err}")
+        out[arch] = err
+    log(f"  smoke configs, card against CPU (float32): "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in out.items()})}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -2179,15 +2573,35 @@ def run(args, cache: Path) -> int:
     surface["examples"] = examples_phase()
     log(json.dumps({"surface": surface}))
     phases["surface_s"] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    t = time.perf_counter()
+    log("[11] the LLM serving path: granite-3-8b served encrypted, decode "
+        "against teacher forcing, the other families, smoke configs card "
+        f"against CPU | {smi}")
+    # float32 on the card means float32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fresh_memory()
+    llm = {"held_gb_at_start": torch.cuda.memory_allocated() / 2**30}
+    llm["serve"], launches_llm = llm_serve_phase(dev)
+    llm["teacher"] = teacher_phase(dev)
+    llm["families"] = families_phase(dev)
+    llm["smoke_card_vs_cpu"] = smoke_archs_phase(dev)
+    llm["peak_gb"] = max([llm["teacher"]["peak_gb"]]
+                         + [r["peak_gb"] for part in ("serve", "families")
+                            for r in llm[part].values()])
+    log(json.dumps({"llm": llm}))
+    phases["llm_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
-    phases["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    phases["peak_mem_gb"] = max(peak, llm["peak_gb"])
     log(json.dumps({"phases": phases}))
 
     rows["mrmc"]["bandwidth"] = bw
     paths = {"hhe_server": launches, "tcp_plane": launches_tcp,
              "tuned_server": launches_tuned, **trans["launches"],
              "presto_keystream": launches_presto,
-             "sharded": launches_sharded}
+             "sharded": launches_sharded, "llm_serve": launches_llm}
     kernels = kernel_entries(rows, times, paths, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))

@@ -511,3 +511,86 @@ def test_card_sharded_engine_matches_cuda_engine(cuda, name):
                 part = {key: None if v is None else v[:lanes]
                         for key, v in k.items()}
                 _exact(eng(part), want_eng(part))
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path (chip_smoke.py phase 11, at smoke size)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def no_tf32():
+    """float32 on the card means float32 in matmuls and convolutions."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _prefill_and_decode(cfg, model, toks, prompt, steps):
+    from repro_torch.models import model as M
+
+    lg, cache, cur = M.prefill(cfg, model, {"tokens": toks[:, :prompt]},
+                               prompt + steps)
+    out = [lg]
+    for i in range(steps):
+        cur += 1
+        lg, cache = M.decode_step(cfg, model, cache,
+                                  toks[:, prompt + i:prompt + i + 1], cur)
+        out.append(lg)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-7b", "gemma2-9b",
+                                  "granite-3-8b", "internlm2-20b",
+                                  "jamba-1.5-large", "mamba2-2.7b",
+                                  "mixtral-8x7b", "qwen2-vl-7b"])
+def test_card_llm_logits_match_the_cpu_in_float32(cuda, no_tf32, arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model = M.init_params(cfg, seed=5, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 19)))
+    with torch.inference_mode():
+        want = _prefill_and_decode(cfg, model, toks, 16, 3)
+        model.to(cuda)
+        got = _prefill_and_decode(cfg, model, toks.to(cuda), 16, 3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_card_serving_cast_equals_cast_per_use(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma2-9b", smoke=True)
+    master = M.init_params(cfg, seed=6, device=cuda)
+    served = M.init_params(cfg, seed=6, device=cuda).cast_for_serving()
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 19)), device=cuda)
+    with torch.inference_mode():
+        for a, b in zip(_prefill_and_decode(cfg, master, toks, 16, 3),
+                        _prefill_and_decode(cfg, served, toks, 16, 3)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cipher", ["rubato-128l", "pasta-128l"])
+def test_card_serve_main_encrypted_launches_the_kernels(cuda, cipher):
+    from repro_torch.launch import serve
+
+    build.reset_launches()
+    out = serve.main(["--arch", "granite-3-8b", "--smoke", "--batch", "4",
+                      "--prompt-len", "32", "--gen", "16", "--encrypted",
+                      "--cipher", cipher])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["keystream"] > 0 and build.LAUNCHES["aes_xof"] > 0
+    assert out["gen"].shape == (4, 16) and out["device"].startswith("cuda")
+    assert out["hhe"]["count"] == 8 and out["decode_ms"] > 0

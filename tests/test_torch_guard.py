@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 
 import repro_torch  # noqa: E402
 from repro_torch.analysis.cost import MachineModel  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.cipher import CipherBatch, make_cipher  # noqa: E402
 from repro_torch.core.engine import make_engine, resolve_engine  # noqa: E402
 from repro_torch.core.params import get_params  # noqa: E402
@@ -31,6 +32,14 @@ from repro_torch.crypto.aes import aes_ctr_keystream  # noqa: E402
 from repro_torch.crypto.xof import threefry_xof_words  # noqa: E402
 from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.serve import EncryptedChannel  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models.convert import params_from_reference  # noqa: E402
+from repro_torch.models.model import init_cache, init_params  # noqa: E402
+from repro_torch.serve.serve_loop import (  # noqa: E402
+    make_decode_step,
+    make_prefill_step,
+)
 from repro_torch.serve.server import ServeClient  # noqa: E402
 from repro_torch.serve.tenants import TenantRegistry  # noqa: E402
 
@@ -50,7 +59,14 @@ def test_every_module_imports_without_jax():
             "repro_torch.analysis", "repro_torch.analysis.bounds",
             "repro_torch.analysis.lint", "repro_torch.analysis.cost",
             "repro_torch.analysis.__main__", "repro_torch.core.hera",
-            "repro_torch.core.rubato", "repro_torch.core.pasta"} <= set(mods)
+            "repro_torch.core.rubato", "repro_torch.core.pasta",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.granite_3_8b", "repro_torch.models",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.mamba2", "repro_torch.models.moe",
+            "repro_torch.models.model", "repro_torch.models.convert",
+            "repro_torch.serve.serve_loop", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -118,11 +134,22 @@ def no_cuda(monkeypatch):
                               np.zeros(12, np.uint8), 0, 4),
     lambda: make_engine("sharded", get_params("hera-80"), np.ones(16),
                         devices=["cuda"]),
+    lambda: init_params(get_config("granite-3-8b", smoke=True)),
+    lambda: init_cache(get_config("granite-3-8b", smoke=True), 1, 4),
+    lambda: params_from_reference(get_config("granite-3-8b", smoke=True),
+                                  {}),
+    lambda: make_prefill_step(get_config("granite-3-8b", smoke=True), 8),
+    lambda: make_decode_step(get_config("granite-3-8b", smoke=True)),
+    lambda: EncryptedChannel("hera-80", 1),
+    lambda: serve_main(["--arch", "granite-3-8b", "--smoke"]),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
         "ServeClient", "default", "cuda", "autotune", "measure_plan",
         "load_plan", "FarmEncryptedSource", "measured_depth",
-        "MachineModel", "aes_ctr_keystream", "sharded_engine"])
+        "MachineModel", "aes_ctr_keystream", "sharded_engine",
+        "init_params", "init_cache", "params_from_reference",
+        "make_prefill_step", "make_decode_step", "EncryptedChannel",
+        "serve_main"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

@@ -78,7 +78,9 @@ Phases (any failure exits non-zero; nothing is caught):
    repro_torch.launch.serve``'s ``main`` in-process at granite-3-8b's full
    config (40 layers, d 4096, 8.17 B parameters, bf16 serving weights)
    with ``--batch 4 --prompt-len 32 --gen 16 --encrypted`` under
-   rubato-128l and pasta-128l, both round trips exact, launch counts
+   rubato-128l and pasta-128l, both round trips exact (the client's
+   side runs the plain versions on the host, so each holds the card's
+   kernels against them at the serving shapes), launch counts
    reset just before and read just after each (the "llm_serve" path,
    keystream and aes_xof above 0); the same weights in float32, and
    mamba2-2.7b at its full config (64 layers) in float32, each a prefill
@@ -92,7 +94,27 @@ Phases (any failure exits non-zero; nothing is caught):
    and mixtral-8x7b at full width cut to 2 layers through ``serve_loop``
    (prefill + 8 decode steps, finite logits, times); and every causal
    arch at its smoke config, float32 logits of prefill + 3 decode steps
-   on the card against the CPU on the same weights (<= 1e-4).
+   on the card against the CPU on the same weights (<= 1e-4);
+12. the training path: ``repro_torch.launch.train.run`` in-process on
+   granite-3-8b at full width (d 4096, 32/8 heads, ff 12800, tied vocab
+   49280, remat, float32 masters, bf16 compute) cut to 16 layers (3.39 B
+   parameters, 54.2 GB of masters, gradients and moments), batch 8 x 512,
+   ``--encrypted --cipher rubato-128l``, 4 steps (the first a warm-up),
+   launch counts reset just before and read just after (the "llm_train"
+   path, keystream and aes_xof above 0); every batch, encrypted by the
+   plain versions on the host and decrypted by the card's kernels at 69
+   lanes, equal to the synthetic stream's tokens and shifted labels,
+   exactly; loss and grad_norm
+   finite, parameters moving, and the chunked CE against one CE over the
+   whole logits in float32 (<= 1e-4 relative); the steady step split by
+   CUDA events into decrypt, forward+backward and AdamW, tokens/s and the
+   model-FLOP share of 989 TFLOP/s over the loop's wall time (the host's
+   encrypt included), an encrypted step's kernels and idle share by
+   ``torch.profiler``, and peak memory; then, at the training
+   example's size, save / restore (bit-equal) / resume (one step within
+   1e-3 of an uninterrupted run) and keep-last GC; and
+   ``examples/torch_encrypted_training.py`` with its defaults as a child
+   process (exit 0: the loss decreased).
 
 The tuner's cache is a fresh file in a temporary directory for the whole
 run, so no cache left on the machine steers any phase.
@@ -1715,21 +1737,28 @@ def sharded_tuner_phase(dev, cache: Path) -> dict:
             "plan": plan.to_json(), "p50_ms": p50 * 1e3}
 
 
+def run_example(script: str, *args) -> tuple:
+    """One port example as a child process on the card; exit 0 required.
+    Returns (seconds, its standard output)."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / script), *args],
+                       capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    check(r.returncode == 0, f"{script} exited {r.returncode}:\n"
+          f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    log(f"  {script} {' '.join(args)}: exit 0 in {seconds:.1f} s")
+    return seconds, r.stdout
+
+
 def examples_phase() -> dict:
     """Both port examples as child processes on the card: exit 0, and the
     farm example's D1/D2/D3 times."""
     out = {}
     for script, *args in EXAMPLES:
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, str(ROOT / script), *args],
-                           capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t
-        check(r.returncode == 0, f"{script} exited {r.returncode}:\n"
-              f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+        seconds, stdout = run_example(script, *args)
         out[script] = {"seconds": seconds}
-        log(f"  {script} {' '.join(args)}: exit 0 in {seconds:.1f} s")
         if "--lanes" in args:
-            out[script].update(json.loads(r.stdout.strip().splitlines()[-1]))
+            out[script].update(json.loads(stdout.strip().splitlines()[-1]))
             for name, d in out[script]["design_points"].items():
                 log(f"    {name}: D1 {d['D1_ms']:.3f} ms, D2 "
                     f"{d['D2_ms']:.3f} ms, D3 {d['D3_ms']:.3f} ms")
@@ -1794,7 +1823,9 @@ def llm_serve_phase(dev) -> tuple:
     """11a: ``repro_torch.launch.serve.main`` in-process at granite-3-8b's
     full config, ``--encrypted`` under each of LLM_CIPHERS; main asserts
     that the farm decrypts the prompts exactly and that every response
-    decrypts back.  Launches are counted around each call, summed as the
+    decrypts back.  The client's side runs the plain versions on the host
+    and the farm the card's kernels, so both round trips hold the kernels
+    against their plain versions at the serving shapes.  Launches are counted around each call, summed as the
     "llm_serve" path."""
     import torch
 
@@ -1858,10 +1889,18 @@ def _greedy_logits(cfg, model, toks, prompt: int, steps: int):
     return out
 
 
+# substrings of the names of cuBLAS's matrix-product kernels on Hopper
+MATMUL_KERNEL_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
+
+
 def step_kernels(step, reps: int = 3) -> dict:
     """The card's kernels in one call of ``step`` by ``torch.profiler``:
-    their count, their summed device ms, and the six names that take the
-    most of it (None where the profiler recorded no device activity)."""
+    their count, their summed device ms, the matrix products' share of it
+    (by kernel name), the six names that take the most of it, and the
+    host's wall ms of the same profiled calls with the share of it that no
+    kernel ran (None where the profiler recorded no device activity).  The
+    profiler's own host cost is inside that wall, so the idle share is an
+    upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1870,20 +1909,29 @@ def step_kernels(step, reps: int = 3) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"kernels_per_step": None, "kernel_ms_per_step": None,
-                "top": None}
+                "matmul_ms_per_step": None, "top": None,
+                "wall_ms_per_step": wall_ms, "idle_share": None}
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    matmul = sum(us for name, us in by_name.items()
+                 if any(k in name.lower() for k in MATMUL_KERNEL_NAMES))
+    kernel_ms = sum(by_name.values()) / reps / 1e3
     return {"kernels_per_step": len(kernels) / reps,
-            "kernel_ms_per_step": sum(by_name.values()) / reps / 1e3,
-            "top": [[name[:80], us / reps / 1e3] for name, us in top]}
+            "kernel_ms_per_step": kernel_ms,
+            "matmul_ms_per_step": matmul / reps / 1e3,
+            "top": [[name[:80], us / reps / 1e3] for name, us in top],
+            "wall_ms_per_step": wall_ms,
+            "idle_share": max(0.0, 1.0 - kernel_ms / wall_ms)}
 
 
 def _teacher(cfg, toks):
@@ -2109,6 +2157,252 @@ def smoke_archs_phase(dev) -> dict:
     log(f"  smoke configs, card against CPU (float32): "
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in out.items()})}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the training path
+# ---------------------------------------------------------------------------
+# granite-3-8b at full width cut to TRAIN_LAYERS: float32 masters,
+# gradients and both AdamW moments are 16 bytes a parameter, 54.2 GB at 16
+# layers (3.39 B parameters) and 131 GB at the full 40
+TRAIN_LAYERS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4     # step 0 is warm-up
+TRAIN_CIPHER = "rubato-128l"
+TRAIN_PATH = ("keystream", "aes_xof")
+BF16_DENSE_FLOPS = 989e12      # H100 SXM data sheet, dense bf16
+CE_TOL = 1e-4                  # chunked against unchunked CE, float32
+RESUME_TOL = 1e-3   # resumed step against an uninterrupted one: the
+# embedding backward accumulates with atomics, so two runs differ slightly
+RESUME_STEPS = 3
+TRAIN_EXAMPLE = "examples/torch_encrypted_training.py"
+
+
+def _probe(params) -> dict:
+    """Small slices of a few leaves, copied (to see them move)."""
+    return {k: v.detach().clone() for k, v in {
+        "final_norm": params.final_norm,
+        "embed": params.embed[:8, :8],
+        "wq": params.blocks[0]["wq"][0, :8, 0],
+        "wi_g": params.blocks[0]["wi_g"][-1, :8, :8]}.items()}
+
+
+def _chunked_ce_gap(cfg, params, batch) -> float:
+    """loss_fn's T-chunked CE against one CE over forward_train's whole
+    logits, in float32, relative."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        _, (ce, _) = M.loss_fn(cfg32, params, batch)
+        logits, _ = M.forward_train(cfg32, params, batch)
+        labels = batch["labels"].long()
+        valid = (labels >= 0) & (labels < cfg.vocab)
+        nll = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        full = (nll * valid).sum() / valid.sum()
+        return abs(ce.item() - full.item()) / abs(full.item())
+
+
+def llm_train_phase(dev) -> tuple:
+    """12a: ``repro_torch.launch.train.run`` in-process on granite-3-8b's
+    full config cut to TRAIN_LAYERS, ``--encrypted --cipher rubato-128l``
+    for TRAIN_STEPS steps.  The launcher's client encrypts on the host with
+    the plain engine and the step decrypts with the card's AES and
+    keystream kernels, so each step's decrypted batch equal to the
+    synthetic stream's, exactly, holds both kernels against their plain
+    versions at the path's own shape (ceil(B*T/l) lanes).  Loss and
+    grad_norm finite; the parameters move.  Launches are counted around
+    the run as the "llm_train" path."""
+    import torch
+
+    from repro_torch.core.cipher import make_cipher
+    from repro_torch.data.encrypted import EncryptedSource, make_decryptor
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as LT
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = llm_config(LLM_ARCH, num_layers=TRAIN_LAYERS)
+    args = LT.parse_args([
+        "--arch", LLM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--encrypted", "--cipher",
+        TRAIN_CIPHER, "--seed", str(LLM_SEED), "--log-every", "1",
+        "--device", str(dev)])
+    src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=LLM_SEED)
+    probes = []
+
+    def observe(step, params, batch, metrics):
+        want = src.batch_at(step)["tokens"]
+        toks = batch["tokens"].cpu().numpy()
+        labels = batch["labels"].cpu().numpy()
+        check(np.array_equal(toks, want),
+              f"llm_train step {step}: decrypted tokens differ")
+        check(np.array_equal(labels[:, :-1], want[:, 1:])
+              and bool((labels[:, -1] == -1).all()),
+              f"llm_train step {step}: labels are not the shifted tokens")
+        for k in ("loss", "grad_norm"):
+            check(bool(torch.isfinite(metrics[k])),
+                  f"llm_train step {step}: {k} {metrics[k]}")
+        probes.append(_probe(params))
+
+    fresh_memory()
+    build.reset_launches()                        # the path starts
+    r = LT.run(cfg, args, observe=observe)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)                 # the path ends
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in TRAIN_PATH:
+        check(counts[k] > 0, f"llm_train: kernel {k} not launched")
+    check(bool(probes[0]["final_norm"].abs().max() > 0),
+          "llm_train: final_norm did not move from its zero init")
+    for k in probes[0]:
+        check(not torch.equal(probes[0][k], probes[-1][k]),
+              f"llm_train: {k} did not move over steps 1-{TRAIN_STEPS - 1}")
+    params = r["params"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch_at(0).items()}
+    ce_gap = _chunked_ce_gap(cfg, params, batch)
+    check(ce_gap <= CE_TOL, f"llm_train: chunked CE differs by {ce_gap}")
+    # the card's kernels in one more encrypted step, as the path runs it
+    # (after every check)
+    enc = make_train_step(
+        cfg, OptConfig(eightbit=cfg.opt_8bit), device=dev,
+        decryptor=make_decryptor(make_cipher(
+            TRAIN_CIPHER, seed=LLM_SEED, engine="auto", device=dev)))
+    enc_batch = EncryptedSource(src, make_cipher(
+        TRAIN_CIPHER, seed=LLM_SEED, device="cpu")).batch_at(TRAIN_STEPS)
+    kernels = step_kernels(lambda: enc(params, r["opt_state"], enc_batch,
+                                       TRAIN_STEPS), reps=1)
+
+    steady = r["history"][1:]
+    med = {k: float(np.median([h[k] for h in steady]))
+            for k in ("decrypt_ms", "fwd_bwd_ms", "adamw_ms", "step_ms",
+                      "data_s", "wall_s")}
+    # what a user pays: the loop's wall time a step, the host's encrypt
+    # of the batch included
+    loop_s = float(np.median([h["data_s"] + h["wall_s"] for h in steady]))
+    n_params = sum(p.numel() for p in params.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * n_params * tokens + 6 * cfg.num_layers * TRAIN_BATCH
+             * TRAIN_SEQ ** 2 * cfg.d_model)
+    out = {"layers": TRAIN_LAYERS, "params": n_params,
+           "state_bytes": 16 * n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "cipher": TRAIN_CIPHER,
+           "history": r["history"], "steady_median": med,
+           "loop_s": loop_s, "step_kernels": kernels,
+           "tokens_per_s": tokens / loop_s,
+           "model_flops": flops,
+           "model_flop_share": flops / loop_s / BF16_DENSE_FLOPS,
+           "peak_gb": peak, "chunked_ce_gap": ce_gap,
+           "launches": {k: counts[k] for k in SOURCES}}
+    del r, params, probes, enc
+    fresh_memory()
+    log(f"  {LLM_ARCH} at {TRAIN_LAYERS} layers ({n_params / 1e9:.2f} B "
+        f"parameters), batch {TRAIN_BATCH} x {TRAIN_SEQ}, --encrypted "
+        f"--cipher {TRAIN_CIPHER}: batches exact (card kernels against "
+        f"the host's plain encrypt), parameters moved; steady step (median "
+        f"of {len(steady)}) {med['step_ms']:.1f} ms on the card (decrypt "
+        f"{med['decrypt_ms']:.2f}, "
+        f"forward+backward {med['fwd_bwd_ms']:.1f}, AdamW "
+        f"{med['adamw_ms']:.1f}), host encrypt {med['data_s'] * 1e3:.1f} "
+        f"ms, loop {loop_s * 1e3:.1f} ms a step; first step "
+        f"{out['history'][0]['step_ms']:.1f} ms; "
+        f"{out['tokens_per_s']:.0f} tokens/s over the loop; model-FLOP share "
+        f"{100 * out['model_flop_share']:.1f}% of 989 TFLOP/s; peak "
+        f"{peak:.2f} GiB; chunked CE gap {ce_gap:.2e}; launches "
+        f"{json.dumps(out['launches'])} | {smi_line()}")
+    if kernels["kernels_per_step"] is not None:
+        log(f"  one encrypted step's kernels (profiled): "
+            f"{kernels['kernels_per_step']:.0f}, "
+            f"{kernels['kernel_ms_per_step']:.1f} ms on the card, "
+            f"{kernels['matmul_ms_per_step']:.1f} ms of it matrix products, "
+            f"in {kernels['wall_ms_per_step']:.1f} ms of wall (idle share "
+            f"<= {100 * kernels['idle_share']:.2f}%); "
+            f"top {json.dumps(kernels['top'])}")
+    return out, out["launches"]
+
+
+def resume_phase(dev) -> dict:
+    """12b: at the example's size (8 layers, d 320), RESUME_STEPS steps,
+    ``save``, ``restore`` into fresh state (bit-equal to what was saved),
+    one more step against an uninterrupted run's (within RESUME_TOL), and
+    ``latest_step`` and keep-last GC."""
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.train.tree import leaves
+
+    # the training example's default model (5 heads share 1 KV head)
+    cfg = ModelConfig(name="encrypted-demo", family="dense", num_layers=8,
+                      d_model=320, num_heads=5, kv_heads=1, d_ff=960,
+                      vocab=2048, remat=False)
+    opt = OptConfig(lr=1e-3, total_steps=300, warmup_steps=15)
+    src = SyntheticLM(cfg, 16, 128, seed=0)
+    step = make_train_step(cfg, opt, device=dev)
+
+    def fresh(seed):
+        model = M.init_params(cfg, seed=seed, device=dev).requires_grad_()
+        return model, init_opt_state(model, opt)
+
+    def train(params, state, steps):
+        losses = []
+        for i in steps:
+            params, state, m = step(params, state, src.batch_at(i), i)
+            losses.append(m["loss"].item())
+        return params, state, losses
+
+    _, _, straight = train(*fresh(0), range(RESUME_STEPS + 1))
+    params, state, _ = train(*fresh(0), range(RESUME_STEPS))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        ckpt.save(tmp, RESUME_STEPS, (params, state),
+                  extra={"data_step": RESUME_STEPS})
+        saved = [t.detach().clone() for t in leaves((params, state))]
+        del params, state
+        like = fresh(1)
+        _, at, extra = ckpt.restore(tmp, like)
+        check(at == RESUME_STEPS and extra == {"data_step": RESUME_STEPS},
+              f"restore: step {at}, extra {extra}")
+        got = leaves(like)
+        check(len(got) == len(saved) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, saved)), "restore: state not bit-equal")
+        _, _, resumed = train(*like, [RESUME_STEPS])
+        gap = abs(resumed[0] - straight[-1]) / abs(straight[-1])
+        check(gap <= RESUME_TOL, f"resumed step loss {resumed[0]} against "
+              f"{straight[-1]} uninterrupted")
+        for s in (4, 5, 6):
+            ckpt.save(tmp, s, like, keep_last=2)
+        kept = sorted(d for d in os.listdir(tmp) if d.startswith("step_"))
+        check(ckpt.latest_step(tmp) == 6
+              and kept == ["step_0000000005", "step_0000000006"],
+              f"checkpoint GC kept {kept}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  checkpoint at step {RESUME_STEPS} (8 layers, d 320): restored "
+        f"bit-equal; step {RESUME_STEPS} resumed loss {resumed[0]:.6f} "
+        f"against {straight[-1]:.6f} uninterrupted (gap {gap:.2e}); "
+        "latest_step and keep-last GC as on the CPU")
+    return {"leaves": len(saved), "resumed_loss": resumed[0],
+            "uninterrupted_loss": straight[-1], "gap": gap}
+
+
+def train_example_phase() -> dict:
+    """12c: the training example with its defaults as a child process on
+    the card (exit 0: its loss decreased)."""
+    seconds, stdout = run_example(TRAIN_EXAMPLE)
+    tail = [ln for ln in stdout.splitlines() if ln.strip()][-2:]
+    for ln in tail:
+        log("    " + ln)
+    return {"seconds": seconds, "tail": tail}
 
 
 # ---------------------------------------------------------------------------
@@ -2593,15 +2887,29 @@ def run(args, cache: Path) -> int:
                             for r in llm[part].values()])
     log(json.dumps({"llm": llm}))
     phases["llm_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log(f"[12] the training path: {LLM_ARCH} at full width cut to "
+        f"{TRAIN_LAYERS} layers trained on {TRAIN_CIPHER}-encrypted "
+        f"batches, checkpoint and resume, the training example | {smi}")
+    fresh_memory()
+    train = {"held_gb_at_start": torch.cuda.memory_allocated() / 2**30}
+    train["llm_train"], launches_train = llm_train_phase(dev)
+    train["resume"] = resume_phase(dev)
+    train["example"] = train_example_phase()
+    log(json.dumps({"train": train}))
+    phases["train_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
-    phases["peak_mem_gb"] = max(peak, llm["peak_gb"])
+    phases["peak_mem_gb"] = max(peak, llm["peak_gb"],
+                                train["llm_train"]["peak_gb"])
     log(json.dumps({"phases": phases}))
 
     rows["mrmc"]["bandwidth"] = bw
     paths = {"hhe_server": launches, "tcp_plane": launches_tcp,
              "tuned_server": launches_tuned, **trans["launches"],
              "presto_keystream": launches_presto,
-             "sharded": launches_sharded, "llm_serve": launches_llm}
+             "sharded": launches_sharded, "llm_serve": launches_llm,
+             "llm_train": launches_train}
     kernels = kernel_entries(rows, times, paths, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))

@@ -320,10 +320,12 @@ class CipherBatch:
     def __len__(self) -> int:
         return len(self.sessions)
 
-    def session_cipher(self, session_id: int) -> Cipher:
-        """Single-stream view of one session (the bit-exactness oracle)."""
+    def session_cipher(self, session_id: int, device=None) -> Cipher:
+        """Single-stream view of one session (the bit-exactness oracle), on
+        ``device`` (default: the pool's)."""
         return Cipher(self.params, self.key, self.sessions[session_id].nonce,
-                      producer=self.producer.name, device=self.device)
+                      producer=self.producer.name,
+                      device=self.device if device is None else device)
 
     def xof_tables(self):
         """Device-side per-session producer material, rebuilt lazily on

@@ -17,7 +17,10 @@ the fused keystream kernel).  The pipeline tuple can come from a measured
 `repro_torch.core.tuner.StreamPlan`: --autotune measures one for this
 serving shape and persists it; --plan serves from a persisted cache.
 Clients encrypt/decrypt with their own session's single-stream view
-(`CipherBatch.session_cipher`) — bit-exact with the farm by contract.
+(`CipherBatch.session_cipher`) on the host, with the plain engine and
+producer, as a client without the key's card would — bit-exact with the
+farm by contract, so each round trip holds the card's kernels against
+their plain versions at the serving shapes.
 
 The model's matmul weights are cast to the compute dtype once, when it is
 built (:meth:`repro_torch.models.model.Model.cast_for_serving`).
@@ -39,6 +42,11 @@ from repro_torch.serve.hhe_loop import HHERequest, HHEServer
 from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
 
 
+#: where the client's single-stream views run: the host, whatever device
+#: serves (the client holds no card)
+CLIENT_DEVICE = torch.device("cpu")
+
+
 def _pack_tokens(tokens_1d, l: int) -> np.ndarray:
     """(T,) token ids -> (blocks, l) uint32, zero-padded to whole blocks."""
     t = np.asarray(tokens_1d).reshape(-1)
@@ -53,9 +61,9 @@ class EncryptedChannel:
 
     Server role: an :class:`HHEServer` (one symmetric key, one session per
     batch lane, fixed-window farm scheduling).  Client role: per-lane
-    single-stream encrypt/decrypt via ``session_cipher`` — the two sides
-    share only (key, nonce, counters), never keystream material over the
-    wire.  Keys and nonces come from ``seed`` as the reference draws them,
+    single-stream encrypt/decrypt via ``session_cipher`` on the host — the
+    two sides share only (key, nonce, counters), never keystream material
+    over the wire.  Keys and nonces come from ``seed`` as the reference draws them,
     so the same seed gives the reference's ciphertexts word for word.
     """
 
@@ -121,22 +129,22 @@ class EncryptedChannel:
                         f"prompt of {pt.shape[0]} blocks exceeds a whole "
                         "session's counter space; split it across windows"
                     )
-            ci = self.batch.session_cipher(i)
+            ci = self.batch.session_cipher(i, device=CLIENT_DEVICE)
             ctrs = np.arange(sess.next_ctr, sess.next_ctr + pt.shape[0],
                              dtype=np.uint32)
             z = ci.keystream(ctrs)
-            ct = add_words(self.mod, as_int64(pt, self.device), z)
-            cts.append(ct.cpu().numpy().astype(np.uint32))
+            ct = add_words(self.mod, as_int64(pt, CLIENT_DEVICE), z)
+            cts.append(ct.numpy().astype(np.uint32))
         return cts
 
     def client_decrypt(self, ct, block_ctrs, lane: int,
                        n_tokens: int) -> np.ndarray:
         """Decrypt one lane's (blocks, l) u32 response at the server-issued
         counters; returns (n_tokens,) int32."""
-        ci = self.batch.session_cipher(lane)
+        ci = self.batch.session_cipher(lane, device=CLIENT_DEVICE)
         z = ci.keystream(np.asarray(block_ctrs, np.uint32))
-        toks = sub_words(self.mod, as_int64(ct, self.device), z)
-        return toks.cpu().numpy().reshape(-1)[:n_tokens].astype(np.int32)
+        toks = sub_words(self.mod, as_int64(ct, CLIENT_DEVICE), z)
+        return toks.numpy().reshape(-1)[:n_tokens].astype(np.int32)
 
     # ---- server role (everything runs through hhe_loop windows) ---------
     def serve_decrypt_prompts(self, cts: list, prompt_len: int) -> np.ndarray:

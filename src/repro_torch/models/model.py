@@ -2,10 +2,11 @@
 architecture exposes:
 
     forward_train(cfg, params, batch)             -> (logits, aux_loss)
+    loss_fn(cfg, params, batch)                   -> (loss, (ce, aux_loss))
     prefill(cfg, params, batch, max_len)          -> (last_logits, cache, cur_len)
     decode_step(cfg, params, cache, tok, cur_len) -> (logits, cache)
 
-The port's copy of the serving half of `repro.models.model`.  Layer
+The port's copy of `repro.models.model` without its sharding.  Layer
 heterogeneity is a repeating group of LayerSpecs; each slot's parameters
 are stacked over ``num_groups`` (leading ``G`` dimension, the reference's
 layouts and names), and the stack is walked by a Python loop where the
@@ -13,6 +14,10 @@ reference scans.  :class:`Model` holds them: ``params["embed"]``,
 ``params["blocks"][slot]["wq"][g]`` read as the reference's pytree does.
 
 The decode step updates the cache in place (the reference donates it).
+Training walks each stacked leaf as ``torch.unbind`` slices, so the
+backward stacks a leaf's gradient once; with ``cfg.remat`` each layer is
+recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's per-layer ``jax.checkpoint`` with ``nothing_saveable``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -171,7 +177,8 @@ class Model(nn.Module):
 
     ``tree`` is ``{"embed", ["frontend_proj"], ["head"], "final_norm",
     "blocks": [slot dicts]}`` of tensors, every shape as :func:`param_defs`
-    gives it.  Parameters carry no gradient (serving)."""
+    gives it.  Parameters carry a gradient only after
+    ``requires_grad_()``; serving leaves them without."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
@@ -200,6 +207,16 @@ class Model(nn.Module):
             return self.blocks[path[1]][path[2]]
         return getattr(self, path[0])
 
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as the reference's tree: ``{"embed", ...,
+        "blocks": [slot dicts]}`` of this model's tensors (no copies)."""
+        out: Dict[str, Any] = {"blocks": [dict(slot.items())
+                                          for slot in self.blocks]}
+        for path, _ in iter_defs(self.cfg):
+            if path[0] != "blocks":
+                out[path[0]] = self.tensor(path)
+        return out
+
     def weight_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
@@ -222,7 +239,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """Random masters from one ``torch.Generator`` on ``device`` (default:
     the card), with the reference's distributions and scales; the numbers
     are not the reference's (carry those with
-    :func:`repro_torch.models.convert.params_from_reference`)."""
+    :func:`repro_torch.models.convert.params_from_reference`).
+    ``.requires_grad_()`` on the result gives them gradients."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -431,14 +449,32 @@ def _rope(cfg: ModelConfig, pos):
 
 
 def forward_hidden(cfg: ModelConfig, params, batch):
-    """Run the layer stack.  Returns (hidden (B,T,D), aux_loss)."""
+    """Run the layer stack.  Returns (hidden (B,T,D), aux_loss).
+
+    Each stacked leaf is split once (``torch.unbind``): the backward of G
+    slices is one stack, where indexing each group would write a zero
+    tensor the size of the whole stack per group.  With ``cfg.remat`` and
+    gradients on, each layer is checkpointed and recomputed in the
+    backward."""
     x = _embed_inputs(cfg, params, batch)
     T = x.shape[1]
     cos, sin = _rope(cfg, _positions(cfg, batch, T))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = [{k: torch.unbind(v, 0) for k, v in p.items()}
+              for p in params["blocks"]]
+
+    def layer_fn(spec, p, x):
+        x, _, a = _block_apply(cfg, spec, p, x, cos, sin)
+        return x, a
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for g in range(cfg.num_groups):
-        for spec, p in zip(cfg.group, params["blocks"]):
-            x, _, a = _block_apply(cfg, spec, _slot(p, g), x, cos, sin)
+        for spec, stack in zip(cfg.group, layers):
+            p = {k: v[g] for k, v in stack.items()}
+            if remat:
+                x, a = checkpoint(layer_fn, spec, p, x, use_reentrant=False)
+            else:
+                x, a = layer_fn(spec, p, x)
             aux = aux + a
     return x, aux / cfg.num_layers
 
@@ -447,6 +483,47 @@ def forward_train(cfg: ModelConfig, params, batch):
     """Full-sequence forward.  Returns (logits (B,T,Vp) f32, aux_loss)."""
     x, aux = forward_hidden(cfg, params, batch)
     return _logits(cfg, params, x), aux
+
+
+def _ce_terms(cfg: ModelConfig, params, x, labels):
+    """(nll_sum, valid_count) of one chunk; its logits never escape.  The
+    label's logit is gathered (the reference contracts a one-hot, which
+    gives the same number)."""
+    logits = _logits(cfg, params, x)
+    valid = (labels >= 0) & (labels < cfg.vocab)
+    labels_c = torch.clamp(labels, 0, cfg.vocab_padded - 1).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (logz - ll) * valid
+    return nll.sum(), valid.sum()
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
+            ce_chunks: int = 8):
+    """CE loss with the head and softmax chunked over T: one (B, T/chunks,
+    V) logits block at a time, checkpointed (recomputed in the backward)
+    when gradients are on, so the full (B, T, V) tensor never exists.
+    Returns (loss + aux_weight * aux, (ce, aux))."""
+    x, aux = forward_hidden(cfg, params, batch)
+    labels = batch["labels"]
+    T = x.shape[1]
+    while T % ce_chunks:
+        ce_chunks //= 2
+    if ce_chunks <= 1:
+        ns, nv = _ce_terms(cfg, params, x, labels)
+    else:
+        C = T // ce_chunks
+        ns, nv = 0.0, 0
+        for i in range(ce_chunks):
+            xi, li = x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+            if torch.is_grad_enabled():
+                s, v = checkpoint(_ce_terms, cfg, params, xi, li,
+                                  use_reentrant=False)
+            else:
+                s, v = _ce_terms(cfg, params, xi, li)
+            ns, nv = ns + s, nv + v
+    loss = ns / torch.clamp(nv, min=1)
+    return loss + aux_weight * aux, (loss, aux)
 
 
 # ===========================================================================

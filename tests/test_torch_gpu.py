@@ -594,3 +594,128 @@ def test_card_serve_main_encrypted_launches_the_kernels(cuda, cipher):
     assert build.LAUNCHES["keystream"] > 0 and build.LAUNCHES["aes_xof"] > 0
     assert out["gen"].shape == (4, 16) and out["device"].startswith("cuda")
     assert out["hhe"]["count"] == 8 and out["decode_ms"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cipher", ["hera-128a", "rubato-128l",
+                                    "pasta-128l"])
+def test_card_channel_client_holds_the_farm_to_the_plain_versions(cuda,
+                                                                  cipher):
+    """The client's views run on the host and launch nothing, so an exact
+    round trip holds the farm's kernels against the plain versions."""
+    from repro_torch.launch.serve import EncryptedChannel
+
+    chan = EncryptedChannel(cipher, 3, seed=4, device=cuda)
+    prompts = np.random.default_rng(1).integers(0, 49155, (3, 150))
+    build.reset_launches()
+    cts = chan.client_encrypt(prompts)
+    assert sum(build.LAUNCHES.values()) == 0
+    got = chan.serve_decrypt_prompts(cts, 150)
+    assert build.LAUNCHES["keystream"] > 0 and build.LAUNCHES["aes_xof"] > 0
+    np.testing.assert_array_equal(got, prompts)
+    gen = prompts[:, :40].astype(np.int32)
+    for i, (ct, ctrs) in enumerate(chan.serve_encrypt_responses(gen)):
+        np.testing.assert_array_equal(
+            chan.client_decrypt(ct, ctrs, i, 40), gen[i])
+
+
+# ---------------------------------------------------------------------------
+# the training path (chip_smoke.py phase 12, at smoke size)
+# ---------------------------------------------------------------------------
+def _train_batch(cfg, step):
+    """A seeded batch as the reference's tests/test_models.py trains each
+    arch (embeddings for the frontend archs)."""
+    rng = np.random.default_rng(100 + step)
+    B, T = 2, 32
+    out = {}
+    if cfg.frontend == "none":
+        out["tokens"] = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    else:
+        out["embeds"] = rng.normal(0, 1, (B, T, cfg.frontend_dim)).astype(
+            np.float32)
+        if cfg.rope_kind == "mrope":
+            out["positions"] = np.broadcast_to(
+                np.arange(T)[None, :, None], (B, T, 3)).astype(np.int32)
+    out["labels"] = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-7b", "gemma2-9b",
+                                  "granite-3-8b", "hubert-xlarge",
+                                  "internlm2-20b", "jamba-1.5-large",
+                                  "mamba2-2.7b", "mixtral-8x7b",
+                                  "qwen2-vl-7b"])
+def test_card_train_step_matches_the_cpu_in_float32(cuda, no_tf32, arch):
+    """Two AdamW steps from the same weights on the same batches, float32
+    compute: loss and grad_norm on the card within 1e-4 relative of the
+    CPU's (jamba and arctic: bf16 masters and 8-bit moments)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    opt = OptConfig(lr=1e-3, eightbit=cfg.opt_8bit, warmup_steps=1,
+                    total_steps=10)
+    runs = []
+    for dev in ("cpu", cuda):
+        model = M.init_params(cfg, seed=9, device="cpu").requires_grad_()
+        model.to(dev)
+        state = init_opt_state(model, opt)
+        step = make_train_step(cfg, opt, device=dev)
+        metrics = []
+        for i in range(2):
+            model, state, m = step(model, state, _train_batch(cfg, i), i)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs.append(metrics)
+    for (l0, g0), (l1, g1) in zip(*runs):
+        assert abs(l1 - l0) <= 1e-4 * abs(l0)
+        assert abs(g1 - g0) <= 1e-4 * abs(g0)
+    if cfg.opt_8bit:
+        assert state["embed"]["m_q"].dtype == torch.int8
+
+
+@pytest.mark.gpu
+def test_card_train_main_encrypted_launches_the_kernels(cuda):
+    from repro_torch.launch import train
+
+    build.reset_launches()
+    out = train.main(["--arch", "granite-3-8b", "--smoke", "--steps", "3",
+                      "--batch", "4", "--seq", "64", "--encrypted",
+                      "--cipher", "rubato-128l"])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["keystream"] > 0 and build.LAUNCHES["aes_xof"] > 0
+    assert out["device"].startswith("cuda") and len(out["history"]) == 3
+    for h in out["history"]:
+        assert np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+        assert h["step_ms"] > 0 and h["decrypt_ms"] > 0
+    # one decrypt a step on the card; the client encrypts on the host
+    assert build.LAUNCHES["keystream"] == 3 and build.LAUNCHES["aes_xof"] == 3
+
+
+@pytest.mark.gpu
+def test_card_train_run_decrypts_the_plain_encrypt_exactly(cuda):
+    """The host's plain encrypt against the card's decrypt, every step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--arch", "granite-3-8b", "--smoke", "--steps",
+                             "2", "--batch", "3", "--seq", "100",
+                             "--encrypted", "--seed", "5"])
+    cfg = get_config("granite-3-8b", smoke=True)
+    src = SyntheticLM(cfg, 3, 100, seed=5)
+    seen = []
+
+    def observe(step, params, batch, metrics):
+        want = src.batch_at(step)["tokens"]
+        assert np.array_equal(batch["tokens"].cpu().numpy(), want)
+        assert np.array_equal(batch["labels"][:, :-1].cpu().numpy(),
+                              want[:, 1:])
+        seen.append(step)
+
+    train.run(cfg, args, observe=observe)
+    assert seen == [0, 1]

@@ -34,6 +34,7 @@ from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.serve import EncryptedChannel  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.model import init_cache, init_params  # noqa: E402
 from repro_torch.serve.serve_loop import (  # noqa: E402
@@ -42,6 +43,8 @@ from repro_torch.serve.serve_loop import (  # noqa: E402
 )
 from repro_torch.serve.server import ServeClient  # noqa: E402
 from repro_torch.serve.tenants import TenantRegistry  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.train_loop import make_train_step  # noqa: E402
 
 PKG = Path(repro_torch.__file__).resolve().parent
 
@@ -66,12 +69,16 @@ def test_every_module_imports_without_jax():
             "repro_torch.models.mamba2", "repro_torch.models.moe",
             "repro_torch.models.model", "repro_torch.models.convert",
             "repro_torch.serve.serve_loop", "repro_torch.launch",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.data.pipeline",
+            "repro_torch.launch.elastic", "repro_torch.launch.train",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.train_loop", "repro_torch.train.checkpoint",
+            "repro_torch.train.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
-            "       or m.startswith(('jax.', 'repro.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
+            "       'ml_dtypes') or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     src = str(PKG.parent)
@@ -92,7 +99,8 @@ def _assert_no_jax_or_reference(path: Path):
             names = [node.module or ""]
         for n in names:
             root = n.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), (path, n)
+            assert root not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                (path, n)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -102,7 +110,8 @@ def test_no_file_imports_jax_or_the_reference(path):
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
-                                  "torch_keystream_farm.py"])
+                                  "torch_keystream_farm.py",
+                                  "torch_encrypted_training.py"])
 def test_no_port_example_imports_jax_or_the_reference(name):
     _assert_no_jax_or_reference(PKG.parents[1] / "examples" / name)
 
@@ -142,6 +151,10 @@ def no_cuda(monkeypatch):
     lambda: make_decode_step(get_config("granite-3-8b", smoke=True)),
     lambda: EncryptedChannel("hera-80", 1),
     lambda: serve_main(["--arch", "granite-3-8b", "--smoke"]),
+    lambda: make_train_step(get_config("granite-3-8b", smoke=True),
+                            OptConfig()),
+    lambda: train_main(["--arch", "granite-3-8b", "--smoke", "--steps",
+                        "1"]),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
         "ServeClient", "default", "cuda", "autotune", "measure_plan",
@@ -149,10 +162,22 @@ def no_cuda(monkeypatch):
         "MachineModel", "aes_ctr_keystream", "sharded_engine",
         "init_params", "init_cache", "params_from_reference",
         "make_prefill_step", "make_decode_step", "EncryptedChannel",
-        "serve_main"])
+        "serve_main", "make_train_step", "train_main"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()
+
+
+def test_training_example_raises_without_a_card():
+    """No card visible: the example stops and names --device cpu; with it,
+    it runs (tests/test_torch_train.py)."""
+    out = subprocess.run(
+        [sys.executable, str(PKG.parents[1] / "examples" /
+                             "torch_encrypted_training.py"), "--steps", "1"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert 'device="cpu"' in out.stderr and "step" not in out.stdout
 
 
 def test_explicit_cpu_runs_and_auto_follows_the_device(no_cuda):

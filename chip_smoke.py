@@ -114,7 +114,28 @@ Phases (any failure exits non-zero; nothing is caught):
    example's size, save / restore (bit-equal) / resume (one step within
    1e-3 of an uninterrupted run) and keep-last GC; and
    ``examples/torch_encrypted_training.py`` with its defaults as a child
-   process (exit 0: the loss decreased).
+   process (exit 0: the loss decreased);
+13. the multi-card path over ``torch.distributed``: a probe of the four
+   collectives DTensor uses (all-gather, reduce-scatter, all-reduce,
+   all-to-all) on CUDA tensors over gloo, 4 processes on the card; then
+   a world of 1 on NCCL (a child process) on the reference's (1, 1) host
+   mesh: granite-3-8b at its full config served ``--encrypted`` under
+   rubato-128l through ``launch.serve.run(mesh=)`` (decrypted prompts
+   and round trips exact, launch counts reset around it: the
+   "llm_sharded" path, keystream and aes_xof above 0; where the model
+   axis is 1, bf16 prefill logits within 5e-2 of the unsharded pass's in
+   the same process and of phase 11's), a float32 sharded forward
+   against the unsharded float32 forward and float32 decode against
+   teacher forcing (both TEACHER_TOL), mixtral-8x7b at full width cut to 2
+   layers through ``moe_ffn_sharded`` against ``moe_ffn`` (SMOKE_TOL), 2
+   encrypted train steps of granite-3-8b at full width cut to 8 layers
+   with FSDP forced on (the "llm_sharded_train" path) against the
+   one-device run (RESUME_TOL), and a 1-layer checkpoint restored with
+   ``shardings=`` bit-equal; the same in a world of 4 (serve, MoE
+   (1, 4), train (2, 2), restore onto (1, 4)) with
+   ``compressed_pod_reduce`` on a (2, 1, 2) pod mesh, exact against its
+   formula: on NCCL on a machine with 4 cards, and on gloo over the one
+   card where the probe passes (train at 2 layers).
 
 The tuner's cache is a fresh file in a temporary directory for the whole
 run, so no cache left on the machine steers any phase.
@@ -1819,14 +1840,15 @@ def fresh_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def llm_serve_phase(dev) -> tuple:
+def llm_serve_phase(dev, ref_path: Path) -> tuple:
     """11a: ``repro_torch.launch.serve.main`` in-process at granite-3-8b's
     full config, ``--encrypted`` under each of LLM_CIPHERS; main asserts
     that the farm decrypts the prompts exactly and that every response
     decrypts back.  The client's side runs the plain versions on the host
     and the farm the card's kernels, so both round trips hold the kernels
     against their plain versions at the serving shapes.  Launches are counted around each call, summed as the
-    "llm_serve" path."""
+    "llm_serve" path.  The rubato-128l run's prefill logits and tokens are
+    saved to ``ref_path`` (phase 13 holds its sharded run to them)."""
     import torch
 
     from repro_torch.kernels import build
@@ -1850,6 +1872,9 @@ def llm_serve_phase(dev) -> tuple:
                   "launched")
         check(r["gen"].shape == (LLM_BATCH, LLM_GEN),
               f"llm_serve {cipher}: generated {r['gen'].shape}")
+        if cipher == "rubato-128l":
+            torch.save({"logits0": r["logits0"],
+                        "gen": torch.as_tensor(r["gen"])}, ref_path)
         step_ms = r["decode_ms"] / r["decode_steps"]
         out[cipher] = {
             "weight_bytes": r["weight_bytes"], "cache_bytes": r["cache_bytes"],
@@ -2406,6 +2431,652 @@ def train_example_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the multi-card path over torch.distributed
+# ---------------------------------------------------------------------------
+SHARDED_PATH = ("keystream", "aes_xof")
+SHARDED_TRAIN_LAYERS = 8
+# the gloo world of 4 on one card stages every FSDP all-gather through the
+# host: its train step is cut to 2 layers
+GLOO_TRAIN_LAYERS = 2
+SHARDED_TRAIN_STEPS = 2
+POD_SHAPE = (2048, 4096)       # compressed_pod_reduce's leaf, float32
+SHARDED_CKPT_LAYERS = 1
+# bf16 prefill logits of the sharded pass against the unsharded pass in
+# the same process and against phase 11's (same seed, bf16 serving
+# weights) where the model axis is 1 (the same sums): the bound of the
+# port's bf16 checks.  Split over the model axis the bf16 partial sums
+# add in another order, so there the two gaps are printed and the float32
+# sharded forward is held against the unsharded float32 forward instead
+# (TEACHER_TOL)
+SHARDED_BF16_TOL = 5e-2
+# the sharded train step against the one-device step on the card: the
+# embedding backward accumulates with atomics, so two runs differ slightly
+# (phase 12's RESUME_TOL)
+SHARDED_TRAIN_TOL = RESUME_TOL
+PROBE_WORLD = 4
+PROBE_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                     "all_reduce", "all_to_all_single")
+GLOO_CUDA = "cpu:gloo,cuda:gloo"
+
+
+def _probe_once(name: str, rank: int, world: int, dev, dtensor: bool):
+    """One collective on CUDA tensors: as ``torch.distributed`` calls it,
+    or as DTensor's redistribute runs it (its functional collectives).
+    Returns "ok", "wrong result" or the error."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+        if dtensor:
+            from torch.distributed.device_mesh import DeviceMesh
+            from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+            mesh = DeviceMesh(dev.type, torch.arange(world),
+                              mesh_dim_names=("x",))
+            src, dst = {
+                "all_gather_into_tensor": ([Shard(0)], [Replicate()]),
+                "reduce_scatter_tensor": ([Partial()], [Shard(0)]),
+                "all_reduce": ([Partial()], [Replicate()]),
+                "all_to_all_single": ([Shard(0)], [Shard(1)]),
+            }[name]
+            xl = x.reshape(world, 4) if name == "all_to_all_single" else x
+            d = DTensor.from_local(xl, mesh, src, run_check=False)
+            y = d.redistribute(mesh, dst).full_tensor()
+            full = torch.stack([xl + r - rank for r in range(world)])
+            want = (full.sum(0) if isinstance(src[0], Partial)
+                    else torch.cat(list(full)))
+        elif name == "all_gather_into_tensor":
+            y = torch.empty(4 * world * world, device=dev)
+            dist.all_gather_into_tensor(y, x)
+            want = torch.cat([x - rank + r for r in range(world)])
+        elif name == "reduce_scatter_tensor":
+            y = torch.empty(4, device=dev)
+            dist.reduce_scatter_tensor(y, x)
+            want = (x - rank).reshape(world, 4)[rank] * world + sum(
+                range(world))
+        elif name == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            want = (x - rank) * world + sum(range(world))
+        else:
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            want = torch.cat([(x - rank).reshape(world, 4)[rank] + r
+                              for r in range(world)])
+        torch.cuda.synchronize()
+        return "ok" if torch.equal(y.float(), want.float()) else "wrong result"
+    except Exception as e:           # a collective gloo lacks: recorded
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def gloo_probe_child(name: str, rank: int, world: int, store: str,
+                     out: str) -> int:
+    """One rank of one probe world: collective ``name`` on CUDA tensors
+    over gloo, first as ``torch.distributed`` calls it, then as DTensor
+    runs it; rank 0 writes each result as soon as it has it (a crash of
+    the second leaves the first)."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    dist.init_process_group(GLOO_CUDA, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    dev = torch.device("cuda", 0)
+    res = {}
+    for kind in ("c10d", "dtensor"):
+        res[kind] = _probe_once(name, rank, world, dev, kind == "dtensor")
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_probe() -> dict:
+    """13a: which collectives this PyTorch's gloo runs on CUDA tensors, in
+    a world of PROBE_WORLD processes on the one card: each collective in
+    a world of its own (the worlds run at once), as ``torch.distributed``
+    calls it and as DTensor's redistribute runs it."""
+    import torch
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-probe-"))
+    try:
+        procs = {c: [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-probe-child",
+             c, str(r), str(PROBE_WORLD), str(tmp / f"{c}.store"),
+             str(tmp / f"{c}.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PROBE_WORLD)] for c in PROBE_COLLECTIVES}
+        res, rcs = {}, {}
+        for c, ps in procs.items():
+            for p in ps:
+                try:
+                    p.communicate(timeout=180)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.communicate()
+            rcs[c] = [p.returncode for p in ps]
+            got = (json.loads((tmp / f"{c}.json").read_text())
+                   if (tmp / f"{c}.json").exists() else {})
+            for kind in ("c10d", "dtensor"):
+                if kind not in got:
+                    got[kind] = (f"not reached: the ranks exited "
+                                 f"{rcs[c]} (negative: killed by that "
+                                 f"signal)")
+            res[c] = got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = all(r[k] == "ok" for r in res.values() for k in ("c10d", "dtensor"))
+    log(f"  gloo on CUDA tensors, worlds of {PROBE_WORLD} on one card "
+        f"(torch {torch.__version__}): " + "; ".join(
+            f"{c}: torch.distributed {r['c10d']}, DTensor {r['dtensor']}"
+            for c, r in res.items()))
+    return {"world": PROBE_WORLD, "backend": GLOO_CUDA,
+            "torch": torch.__version__, "results": res, "exit_codes": rcs,
+            "all_ok": ok}
+
+
+def _sharded_serve(dev, mesh, ref_logits: Path) -> dict:
+    """granite-3-8b at its full config, --encrypted under rubato-128l,
+    through ``launch.serve.run`` with a policy: the launcher checks the
+    decrypted prompts and both round trips (rank 0); the prefill logits
+    against the unsharded pass's in this process (rank 0 runs it first)
+    and against phase 11's, from the parent process."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([
+        "--arch", LLM_ARCH, "--batch", str(LLM_BATCH), "--prompt-len",
+        str(LLM_PROMPT), "--gen", str(LLM_GEN), "--encrypted", "--cipher",
+        "rubato-128l", "--seed", str(LLM_SEED), "--device", str(dev)])
+    rank0 = dist.get_rank() == 0
+    plain = None
+    if rank0:            # the unsharded pass in this process: rank 0 alone
+        fresh_memory()
+        plain = serve.run(llm_config(LLM_ARCH), args)
+        plain = {k: plain[k] for k in ("logits0", "gen")}
+    fresh_memory()
+    dist.barrier()
+    build.reset_launches()                        # the path starts
+    r = serve.run(llm_config(LLM_ARCH), args, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)                 # the path ends
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"policy": r["policy"].describe(), "mesh": dict(r["policy"].axes),
+           "prefill_ms": r["prefill_ms"],
+           "decode_ms_per_step": r["decode_ms"] / r["decode_steps"],
+           "tokens_per_s": r["tokens_per_s"], "peak_gb": peak,
+           "launches": {k: counts[k] for k in SOURCES}}
+    if rank0:
+        for k in SHARDED_PATH:
+            check(counts[k] > 0, f"llm_sharded: kernel {k} not launched")
+        gap = float((r["logits0"] - plain["logits0"]).abs().max())
+        ref = torch.load(ref_logits)
+        gap11 = float((r["logits0"] - ref["logits0"]).abs().max())
+        if r["policy"].model_size == 1:
+            check(gap <= SHARDED_BF16_TOL, f"llm_sharded: prefill logits "
+                  f"differ from the unsharded pass's by {gap} (bound "
+                  f"{SHARDED_BF16_TOL})")
+            check(gap11 <= SHARDED_BF16_TOL, f"llm_sharded: prefill logits "
+                  f"differ from phase 11's by {gap11} (bound "
+                  f"{SHARDED_BF16_TOL})")
+        out.update(logit_gap=gap, logit_gap_phase11=gap11,
+                   logit_absmax=float(ref["logits0"].abs().max()),
+                   same_tokens=bool(np.array_equal(r["gen"], plain["gen"])),
+                   same_tokens_phase11=bool(np.array_equal(
+                       r["gen"], ref["gen"].numpy())),
+                   hhe_p50_ms=r["hhe"]["p50_ms"])
+    del r
+    fresh_memory()
+    return out
+
+
+def _sharded_teacher(dev, policy_of) -> dict:
+    """granite-3-8b at its full config in float32 with a policy: one
+    sharded forward over LLM_PROMPT + TEACHER_STEPS tokens against the
+    unsharded forward on the same weights (rank 0 runs it first), and
+    prefill over LLM_PROMPT tokens and TEACHER_STEPS decode steps against
+    the sharded forward (both TEACHER_TOL)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
+    from repro_torch.train.train_loop import act_shardings
+
+    cfg = llm_config(LLM_ARCH, dtype="float32")
+    pol = policy_of(cfg, LLM_BATCH, False)
+    toks = _teacher_tokens(cfg, "cpu")
+    rank0 = dist.get_rank() == 0
+    fresh_memory()
+    if rank0:                # the unsharded forward: rank 0 alone
+        plain = M.init_params(cfg, seed=LLM_SEED, device=dev)
+        with torch.no_grad():
+            want = M.forward_train(cfg, plain,
+                                   {"tokens": toks.to(dev)})[0].cpu()
+        del plain
+        fresh_memory()
+    dist.barrier()
+    model = M.init_params(cfg, seed=LLM_SEED, device=dev,
+                          policy=pol).cast_for_serving()
+    with torch.no_grad():
+        full = M.forward_train(
+            cfg, model, {"tokens": M.place(toks.to(dev), pol,
+                                           pol.batch_spec())},
+            shardings=act_shardings(cfg, pol))[0].full_tensor()
+    pre = make_prefill_step(cfg, LLM_PROMPT + TEACHER_STEPS, device=dev,
+                            policy=pol)
+    dec = make_decode_step(cfg, device=dev, policy=pol)
+    lg, cache, cur = pre(model, {"tokens": toks[:, :LLM_PROMPT]})
+    errs = [float((lg.full_tensor()[:, 0] - full[:, LLM_PROMPT - 1])
+                  .abs().max())]
+    for i in range(TEACHER_STEPS):
+        cur += 1
+        lg, cache = dec(model, cache, toks[:, LLM_PROMPT + i:
+                                            LLM_PROMPT + i + 1], cur)
+        errs.append(float((lg.full_tensor()[:, 0] - full[:, cur - 1])
+                          .abs().max()))
+    check(max(errs) <= TEACHER_TOL[LLM_ARCH], f"llm_sharded: float32 decode "
+          f"differs from teacher forcing by {max(errs)}")
+    out = {"max_abs_err": max(errs), "per_step": errs}
+    if rank0:
+        gap = float((full.cpu() - want).abs().max())
+        check(gap <= TEACHER_TOL[LLM_ARCH], f"llm_sharded: float32 sharded "
+              f"forward differs from the unsharded forward by {gap}")
+        out["forward_gap"] = gap
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, cache, full
+    fresh_memory()
+    return out
+
+
+def _sharded_moe(dev, policy_of) -> dict:
+    """mixtral-8x7b at full width cut to 2 layers, float32: prefill logits
+    through ``moe_ffn_sharded`` (a policy) against the unsharded
+    ``moe_ffn`` on the same weights (SMOKE_TOL)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_loop import make_prefill_step
+
+    import torch.distributed as dist
+
+    cfg = llm_config("mixtral-8x7b", num_layers=2, dtype="float32")
+    pol = policy_of(cfg, LLM_BATCH, False)
+    toks = _teacher_tokens(cfg, "cpu")[:, :LLM_PROMPT]
+    fresh_memory()
+    box = [None]
+    if dist.get_rank() == 0:         # the unsharded run: rank 0 alone
+        plain = M.init_params(cfg, seed=LLM_SEED, device=dev)
+        with torch.inference_mode():
+            box[0] = make_prefill_step(cfg, LLM_PROMPT, device=dev)(
+                plain, {"tokens": toks})[0].cpu()
+        del plain
+    dist.broadcast_object_list(box)
+    want = box[0]
+    fresh_memory()
+    model = M.init_params(cfg, seed=LLM_SEED, device=dev, policy=pol)
+    got = make_prefill_step(cfg, LLM_PROMPT, device=dev, policy=pol)(
+        model, {"tokens": toks})[0].full_tensor().cpu()
+    e_axes, _ = pol.expert_axes(cfg)
+    gap = float((got - want).abs().max())
+    check(gap <= SMOKE_TOL, f"moe_ffn_sharded differs from moe_ffn by {gap}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    fresh_memory()
+    return {"max_abs_err": gap, "expert_axes": e_axes,
+            "experts_per_rank": cfg.num_experts // max(1, int(np.prod(
+                [pol.shape[a] for a in (e_axes or ())]))),
+            "peak_gb": peak}
+
+
+def _sharded_train(dev, mesh, layers: int) -> tuple:
+    """granite-3-8b at full width cut to ``layers``, trained
+    SHARDED_TRAIN_STEPS encrypted steps through ``launch.train.run`` with
+    the mesh (FSDP forced on by ``hbm_bytes``), against the one-device
+    run (SHARDED_TRAIN_TOL); every decrypted batch exact (the card's
+    kernels against the host's plain encrypt)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as LT
+
+    cfg = llm_config(LLM_ARCH, num_layers=layers)
+    argv = ["--arch", LLM_ARCH, "--steps", str(SHARDED_TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--encrypted", "--cipher", TRAIN_CIPHER, "--seed", str(LLM_SEED),
+            "--log-every", "1", "--device", str(dev)]
+    src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=LLM_SEED)
+
+    def observe(step, params, batch, metrics):
+        toks = batch["tokens"].cpu().numpy()
+        check(np.array_equal(toks, src.batch_at(step)["tokens"]),
+              f"llm_sharded_train step {step}: decrypted tokens differ")
+
+    runs = {}
+    # the one-device run on rank 0 alone (the ranks share one card)
+    if dist.get_rank() == 0:
+        fresh_memory()
+        r = LT.run(cfg, LT.parse_args(argv), observe=observe)
+        runs["one_device"] = {
+            "history": r["history"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del r
+    box = [runs.get("one_device")]
+    dist.broadcast_object_list(box)
+    runs["one_device"] = box[0]
+    fresh_memory()
+    dist.barrier()
+    build.reset_launches()                        # the path starts
+    r = LT.run(cfg, LT.parse_args(argv), observe=observe, mesh=mesh,
+               hbm_bytes=1.0)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)                 # the path ends
+    pol = r["policy"]
+    check(pol.fsdp, "llm_sharded_train: FSDP not on")
+    runs["sharded"] = {"history": r["history"],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del r
+    fresh_memory()
+    for k in SHARDED_PATH:
+        check(counts[k] > 0, f"llm_sharded_train: kernel {k} not launched")
+    for a, b in zip(runs["one_device"]["history"],
+                    runs["sharded"]["history"]):
+        for k in ("loss", "grad_norm"):
+            gap = abs(b[k] - a[k]) / abs(a[k])
+            check(gap <= SHARDED_TRAIN_TOL, f"llm_sharded_train step "
+                  f"{a['step']}: {k} {b[k]} against {a[k]} on one device")
+    last = runs["sharded"]["history"][-1]
+    out = {"layers": layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "policy": pol.describe(),
+           "mesh": dict(pol.axes), "runs": runs,
+           "step_ms": {k: last[k] for k in ("decrypt_ms", "fwd_bwd_ms",
+                                            "adamw_ms", "step_ms")},
+           "launches": {k: counts[k] for k in SOURCES}}
+    return out, out["launches"]
+
+
+def _sharded_checkpoint(dev, mesh, policy_of) -> dict:
+    """granite-3-8b at full width cut to SHARDED_CKPT_LAYERS: one sharded
+    step on ``mesh`` saved by ``launch.train.run``, restored with
+    ``shardings=`` onto the layout of ``policy_of`` (another mesh where
+    the world allows: the elastic resharding path), bit-equal to what the
+    run ended with."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as LT
+    from repro_torch.models.sharding import named_shardings
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.tree import leaves
+
+    cfg = llm_config(LLM_ARCH, num_layers=SHARDED_CKPT_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-ckpt-") \
+        if dist.get_rank() == 0 else None
+    box = [tmp]
+    dist.broadcast_object_list(box)
+    tmp = box[0]
+    try:
+        fresh_memory()
+        args = LT.parse_args([
+            "--arch", LLM_ARCH, "--steps", "1", "--batch", "2", "--seq",
+            "128", "--seed", str(LLM_SEED), "--ckpt-dir", tmp,
+            "--device", str(dev)])
+        t = time.perf_counter()
+        r = LT.run(cfg, args, mesh=mesh, hbm_bytes=1.0)
+        run_s = time.perf_counter() - t
+        pol = policy_of(cfg, 2, True)
+        step = LT.make_train_step(cfg, OptConfig(eightbit=cfg.opt_8bit),
+                                  device=dev, policy=pol)
+        sh = (named_shardings(pol, step.specs["params"]),
+              named_shardings(pol, step.specs["opt"]))
+        t = time.perf_counter()
+        (p2, o2), at, _ = ckpt.restore(tmp, (r["params"], r["opt_state"]),
+                                       shardings=sh)
+        restore_s = time.perf_counter() - t
+        saved = leaves((r["params"], r["opt_state"]))
+        got = leaves((p2, o2))
+        same = len(saved) == len(got) and all(
+            torch.equal(a.full_tensor(), b.full_tensor())
+            for a, b in zip(saved, got))
+        check(at == 1 and same, "sharded restore: state not bit-equal")
+        nbytes = sum(a.numel() * a.element_size() for a in saved)
+        del r, p2, o2, saved, got
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+    fresh_memory()
+    return {"layers": SHARDED_CKPT_LAYERS, "bytes": nbytes,
+            "restored_onto": dict(pol.axes), "train_and_save_s": run_s,
+            "restore_s": restore_s}
+
+
+def _sharded_pod_reduce(dev) -> dict:
+    """``compressed_pod_reduce`` on a (2, 1, 2) ("pod", "data", "model")
+    mesh: each pod's gradient from its own seed, the result on every rank
+    equal to the reference's formula in float32 numpy, exactly."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import MULTI_POD_AXES, make_mesh
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.train.compression import compressed_pod_reduce
+
+    pol = make_policy(make_mesh((2, 1, 2), MULTI_POD_AXES, device=dev),
+                      llm_config(LLM_ARCH), batch=2, train=True)
+    pod = pol.coord("pod")
+
+    def leaf(p, scale):
+        return np.random.default_rng(50 + p).normal(
+            0, scale, POD_SHAPE).astype(np.float32)
+
+    g = {"w": torch.as_tensor(leaf(pod, 1.0), device=dev)}
+    e = {"w": torch.as_tensor(leaf(pod + 2, 1e-2), device=dev)}
+    t = time.perf_counter()
+    ghat, new_e = compressed_pod_reduce(g, e, pol.mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    xs = [leaf(p, 1.0) + leaf(p + 2, 1e-2) for p in (0, 1)]
+    qs = []
+    for x in xs:
+        amax = np.abs(x).max(-1, keepdims=True)
+        sc = np.where(amax > 0, amax / np.float32(127.0),
+                      np.float32(1.0)).astype(np.float32)
+        qs.append((np.clip(np.round(x / sc), -127, 127).astype(np.int8), sc))
+    want = (qs[0][0].astype(np.int32) + qs[1][0].astype(np.int32)).astype(
+        np.float32) * ((qs[0][1] + qs[1][1]) / np.float32(2)) / np.float32(2)
+    want_e = xs[pod] - qs[pod][0].astype(np.float32) * qs[pod][1]
+    check(np.array_equal(ghat["w"].cpu().numpy(), want)
+          and np.array_equal(new_e["w"].cpu().numpy(), want_e),
+          "compressed_pod_reduce differs from its formula")
+    ok = [None] * dist.get_world_size()
+    dist.all_gather_object(ok, True)
+    return {"mesh": dict(pol.axes), "shape": POD_SHAPE, "exact": all(ok),
+            "ms": ms}
+
+
+def sharded_child(spec_path: str) -> int:
+    """One rank of phase 13's world (a child process): the sharded serving
+    path, teacher forcing, the expert-parallel MoE, the sharded train step
+    and the resharding restore, on the meshes the spec names.  Writes
+    rank 0's results (with each path's launch counts) to the spec's
+    ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, world = spec["rank"], spec["world"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models.sharding import make_policy
+
+    dev = torch.device(spec.get("device", "cuda:0"))
+    init_distributed(dev, store=dist.FileStore(spec["store"], world),
+                     rank=rank, world_size=world, backend=spec["backend"])
+    if dev.type == "cuda":
+        build.library()
+    axes = ("data", "model")
+    meshes = {k: make_mesh(tuple(v), axes, device=dev)
+              for k, v in spec["meshes"].items()}
+
+    def policy_of(mesh_name):
+        return lambda cfg, batch, train: make_policy(
+            meshes[mesh_name], cfg, batch=batch, train=train)
+
+    out = {"world": world, "backend": str(dist.get_backend()),
+           "meshes": spec["meshes"]}
+    t = time.perf_counter()
+    out["serve"] = _sharded_serve(dev, meshes["serve"], spec["ref_logits"])
+    out["teacher"] = _sharded_teacher(dev, policy_of("serve"))
+    out["moe"] = _sharded_moe(dev, policy_of("moe"))
+    out["serve_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["train"], out["train_launches"] = _sharded_train(
+        dev, meshes["train"], spec["train_layers"])
+    out["checkpoint"] = _sharded_checkpoint(dev, meshes["train"],
+                                            policy_of("serve"))
+    out["train_s"] = time.perf_counter() - t
+    if world >= 4:
+        out["pod_reduce"] = _sharded_pod_reduce(dev)
+    out["serve_launches"] = out["serve"]["launches"]
+    out["peak_gb"] = max(out["serve"]["peak_gb"], out["teacher"]["peak_gb"],
+                         out["moe"]["peak_gb"],
+                         *(r["peak_gb"] for r in out["train"]["runs"]
+                           .values()))
+    if rank == 0:
+        Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_world(world: int, backend: str, meshes: dict, ref_logits: Path,
+              train_layers: int, timeout: float = 900) -> dict:
+    """Start phase 13's world: ``world`` child processes on the card."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-world-"))
+    try:
+        procs = []
+        for r in range(world):
+            spec = tmp / f"spec{r}.json"
+            spec.write_text(json.dumps({
+                # NCCL: a card a rank; gloo: every rank on the one card
+                "device": f"cuda:{r if backend == 'nccl' else 0}",
+                "rank": r, "world": world, "backend": backend,
+                "store": str(tmp / "store"), "meshes": meshes,
+                "train_layers": train_layers,
+                "ref_logits": str(ref_logits), "out": str(tmp / "out.json")}))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--sharded-child", str(spec)],
+                stdout=subprocess.PIPE if r else None,
+                stderr=subprocess.STDOUT if r else None, text=True))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0)
+                                             for p in procs):
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        rcs = [p.returncode for p in procs]
+        tails = [p.stdout.read()[-3000:] for p in procs[1:]]
+        check(rcs == [0] * world, f"phase 13 world of {world} ({backend}) "
+              f"exit codes {rcs}:\n" + "\n".join(tails))
+        return json.loads((tmp / "out.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+WORLD4_MESHES = {"serve": (1, 4), "moe": (1, 4), "train": (2, 2)}
+
+
+def nccl_world4(ref_logits: Path) -> dict:
+    """13c: the same phase in a world of 4 on NCCL, a card a rank (only
+    on a machine with 4 cards)."""
+    w4 = run_world(4, "nccl", WORLD4_MESHES, ref_logits, SHARDED_TRAIN_LAYERS)
+    _log_world(w4)
+    return w4
+
+
+def sharded_phase(ref_logits: Path) -> tuple:
+    """13: the gloo probe, then the world of 1 on NCCL (always) on the
+    reference's host mesh, a world of 4 on gloo over the one card where
+    the probe shows gloo runs every collective the path uses, and a world
+    of 4 on NCCL where the machine has 4 cards."""
+    import torch
+
+    out = {"gloo_probe": gloo_probe()}
+    w1 = run_world(1, "nccl", {"serve": (1, 1), "moe": (1, 1),
+                               "train": (1, 1)}, ref_logits,
+                   SHARDED_TRAIN_LAYERS)
+    out["world1"] = w1
+    _log_world(w1)
+    if torch.cuda.device_count() >= 4:
+        out["world4_nccl"] = nccl_world4(ref_logits)
+    if out["gloo_probe"]["all_ok"]:
+        w4 = run_world(4, GLOO_CUDA, WORLD4_MESHES, ref_logits,
+                       GLOO_TRAIN_LAYERS)
+        out["world4_gloo"] = w4
+        _log_world(w4, note="; a gloo world on one card stages collectives "
+                   "through the host and shares one card's SMs: these "
+                   "times describe the correctness run, not multi-card "
+                   "speed")
+    else:
+        log("  a world of 4 on gloo was not run: the probe shows gloo "
+            "does not run every collective the path uses on CUDA tensors "
+            "(DTensor's among them); the multi-rank checks run on the CPU "
+            "only (tests/test_torch_sharded_*.py)")
+    return out, w1["serve_launches"], w1["train_launches"]
+
+
+def _log_world(w: dict, note: str = "") -> None:
+    s, t = w["serve"], w["train"]
+    pod = w.get("pod_reduce")
+    if pod:
+        note = (f"; compressed_pod_reduce on {json.dumps(pod['mesh'])} "
+                f"exact on every rank ({pod['ms']:.1f} ms)") + note
+    log(f"  world {w['world']}, backend {w['backend']}, meshes "
+        f"{json.dumps(w['meshes'])}: serve policy {s['policy']}; "
+        f"{LLM_ARCH} served encrypted: round trips exact, prefill logits "
+        f"{s.get('logit_gap', float('nan')):.3g} from the unsharded pass's "
+        f"and {s.get('logit_gap_phase11', float('nan')):.3g} from phase "
+        f"11's (|logit| <= {s.get('logit_absmax', float('nan')):.3g}), same "
+        f"tokens {s.get('same_tokens')} and {s.get('same_tokens_phase11')};"
+        f" prefill {s['prefill_ms']:.2f} ms, "
+        f"decode {s['decode_ms_per_step']:.2f} ms/step; float32 sharded "
+        f"forward {w['teacher']['forward_gap']:.3g} from the unsharded "
+        f"forward, teacher forcing {w['teacher']['max_abs_err']:.3g}; "
+        f"mixtral 2 layers "
+        f"moe_ffn_sharded against moe_ffn {w['moe']['max_abs_err']:.3g} "
+        f"({w['moe']['experts_per_rank']} experts a rank); train "
+        f"{t['layers']} layers policy {t['policy']}: step "
+        f"{t['step_ms']['step_ms']:.1f} ms (decrypt "
+        f"{t['step_ms']['decrypt_ms']:.2f}, forward+backward "
+        f"{t['step_ms']['fwd_bwd_ms']:.1f}, AdamW "
+        f"{t['step_ms']['adamw_ms']:.1f}); checkpoint "
+        f"{w['checkpoint']['bytes'] / 1e9:.2f} GB restored bit-equal with "
+        f"shardings= in {w['checkpoint']['restore_s']:.1f} s; peak "
+        f"{w['peak_gb']:.2f} GiB a rank; launches serve "
+        f"{json.dumps(w['serve_launches'])} train "
+        f"{json.dumps(w['train_launches'])} | {smi_line()}{note}")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -2726,6 +3397,13 @@ def main(argv) -> int:
                          "time beside this one")
     ap.add_argument("--baseline-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--tcp-client", nargs=4, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe-child", nargs=5, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
+    # phase 13 alone (after the build and phase 11a, whose logits it is
+    # held to); on a machine with 4 cards, its world of 4 on NCCL alone.
+    # Prints no kernel line
+    ap.add_argument("--only-sharded", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
@@ -2738,6 +3416,13 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.tcp_client is not None:
         return tcp_client_child(*args.tcp_client)
+    if args.gloo_probe_child is not None:
+        name, r, w, store, out = args.gloo_probe_child
+        return gloo_probe_child(name, int(r), int(w), store, out)
+    if args.sharded_child is not None:
+        return sharded_child(args.sharded_child)
+    if args.only_sharded:
+        return run_sharded_only()
     # the tuner's cache: a fresh file for this run only, so no cache left
     # on the machine steers "auto" in any phase
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-tuner-"))
@@ -2747,6 +3432,37 @@ def main(argv) -> int:
         return run(args, cache)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_sharded_only() -> int:
+    """Build, phase 11a (the reference logits), phase 13."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    log(f"[1] device: {torch.cuda.get_device_name(0)} | {smi_line()}")
+    build.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref_logits = Path(tempfile.mkdtemp(prefix="chip-smoke-ref-")) / "p11.pt"
+    t = time.perf_counter()
+    llm_serve_phase(dev, ref_logits)
+    log(f"[11a] {time.perf_counter() - t:.1f} s")
+    fresh_memory()
+    t = time.perf_counter()
+    if torch.cuda.device_count() >= 4:
+        # four cards: the world of 4 on NCCL and nothing else
+        sharded = {"world4_nccl": nccl_world4(ref_logits)}
+        a, b = (sharded["world4_nccl"][k] for k in ("serve_launches",
+                                                     "train_launches"))
+    else:
+        sharded, a, b = sharded_phase(ref_logits)
+    shutil.rmtree(ref_logits.parent, ignore_errors=True)
+    log(json.dumps({"sharded_llm": sharded}))
+    log(f"[13] {time.perf_counter() - t:.1f} s; launches llm_sharded "
+        f"{json.dumps(a)} llm_sharded_train {json.dumps(b)}")
+    return 0
 
 
 def run(args, cache: Path) -> int:
@@ -2878,7 +3594,8 @@ def run(args, cache: Path) -> int:
     torch.backends.cudnn.allow_tf32 = False
     fresh_memory()
     llm = {"held_gb_at_start": torch.cuda.memory_allocated() / 2**30}
-    llm["serve"], launches_llm = llm_serve_phase(dev)
+    ref_logits = Path(tempfile.mkdtemp(prefix="chip-smoke-ref-")) / "p11.pt"
+    llm["serve"], launches_llm = llm_serve_phase(dev, ref_logits)
     llm["teacher"] = teacher_phase(dev)
     llm["families"] = families_phase(dev)
     llm["smoke_card_vs_cpu"] = smoke_archs_phase(dev)
@@ -2899,9 +3616,21 @@ def run(args, cache: Path) -> int:
     train["example"] = train_example_phase()
     log(json.dumps({"train": train}))
     phases["train_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log(f"[13] the multi-card path over torch.distributed: the gloo probe, "
+        f"then {LLM_ARCH} served encrypted and trained sharded in a world "
+        f"of 1 on NCCL (child processes) | {smi}")
+    fresh_memory()
+    sharded, launches_sharded_llm, launches_sharded_train = sharded_phase(
+        ref_logits)
+    shutil.rmtree(ref_logits.parent, ignore_errors=True)
+    log(json.dumps({"sharded_llm": sharded}))
+    phases["sharded_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = max(peak, llm["peak_gb"],
-                                train["llm_train"]["peak_gb"])
+                                train["llm_train"]["peak_gb"],
+                                sharded["world1"]["peak_gb"])
     log(json.dumps({"phases": phases}))
 
     rows["mrmc"]["bandwidth"] = bw
@@ -2909,7 +3638,9 @@ def run(args, cache: Path) -> int:
              "tuned_server": launches_tuned, **trans["launches"],
              "presto_keystream": launches_presto,
              "sharded": launches_sharded, "llm_serve": launches_llm,
-             "llm_train": launches_train}
+             "llm_train": launches_train,
+             "llm_sharded": launches_sharded_llm,
+             "llm_sharded_train": launches_sharded_train}
     kernels = kernel_entries(rows, times, paths, errors,
                              baseline is not None)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Elastic mesh planning and straggler detection.
 
-The port's copy of `repro.launch.elastic` without ``build_mesh`` (a device
-mesh is the multi-card slice's).  ``plan_mesh`` shrinks the data/pod axes
-to the largest supported configuration on the surviving devices, keeping
-the model axis.  ``StragglerWatchdog`` tracks an EMA of step time; a
+The port's copy of `repro.launch.elastic`.  ``plan_mesh`` shrinks the
+data/pod axes to the largest supported configuration on the surviving
+devices, keeping the model axis; ``build_mesh`` lays the plan over the
+first ``plan.n_devices`` ranks of the started world as a ``DeviceMesh``
+(restore a checkpoint onto it with ``checkpoint.restore(shardings=)``).  ``StragglerWatchdog`` tracks an EMA of step time; a
 sustained regression beyond ``threshold`` x flags a straggler event (the
 deployment policy is checkpoint -> evict -> elastic restart).
 """
@@ -50,6 +51,26 @@ def plan_mesh(available_devices: int, *, model: int = 16,
         names = ("data", "model")
         used = usable_dp * model
     return ElasticPlan(shape, names, used, available_devices - used)
+
+
+def build_mesh(plan: ElasticPlan, device=None):
+    """A ``DeviceMesh`` of ``plan.mesh_shape`` named ``plan.axis_names``
+    over ranks 0 .. ``plan.n_devices`` - 1 of the started world (default
+    device: the card).  Every rank of the world calls it; ranks past the
+    plan get the mesh object but hold no coordinate in it."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import init_distributed
+
+    dev = init_distributed(device, verbose=False)
+    world = dist.get_world_size()
+    if plan.n_devices > world:
+        raise RuntimeError(f"plan {plan.mesh_shape} needs {plan.n_devices} "
+                           f"ranks, the world has {world}")
+    ranks = torch.arange(plan.n_devices).reshape(plan.mesh_shape)
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(plan.axis_names))
 
 
 @dataclasses.dataclass

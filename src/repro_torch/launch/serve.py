@@ -6,8 +6,17 @@ keystream subtraction, generates, and re-encrypts the response stream).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --encrypted [--device cpu]
 
-The port's copy of `repro.launch.serve`, on one device (default: the
-card).  The encrypted path is farm-backed: the server holds ONE symmetric
+The port's copy of `repro.launch.serve` (default device: the card).
+``--production-mesh`` serves on the reference's (16, 16) mesh and raises,
+naming the world it needs, in any other world; ``--mesh D,M`` (or
+``P,D,M``) lays a mesh over the launched world (``torchrun``; a world of
+several ranks needs one of the two, and each rank takes the card of its
+``LOCAL_RANK`` unless ``--device`` names one), and :func:`run` takes a
+``DeviceMesh``.  On a mesh every rank runs this
+(SPMD) with DTensor weights laid out by the sharding policy; rank 0
+holds the :class:`EncryptedChannel`, its decrypted tokens reach the other
+ranks through ``distribute_tensor``, and the round trips are checked on
+rank 0.  The encrypted path is farm-backed: the server holds ONE symmetric
 key in a :class:`repro_torch.core.cipher.CipherBatch` pool with one
 `StreamSession` per batch lane, and every keystream materialization —
 prompt decryption AND response re-encryption — runs through the
@@ -33,11 +42,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.cipher import CipherBatch, add_words, as_int64, sub_words
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_distributed, launch_mesh
 from repro_torch.models import model as M
+from repro_torch.models.sharding import make_policy
 from repro_torch.serve.hhe_loop import HHERequest, HHEServer
 from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
 
@@ -199,12 +211,7 @@ def _span(dev: torch.device):
     return stop
 
 
-def main(argv=None) -> dict:
-    """Run one serving batch; prints the reference's lines and returns
-    ``{"gen": (B, gen) int32 tokens, "prompts", "prefill_ms",
-    "decode_ms", "decode_steps", "tokens_per_s", "weight_bytes",
-    "cache_bytes", "hhe": window latency stats or None, "device"}``
-    (times from CUDA events on the card)."""
+def parse_args(argv=None) -> argparse.Namespace:
     from repro_torch.core.params import REGISTRY as _CIPHERS
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -241,27 +248,56 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch path on the host)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh: a world of 256")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh shape D,M or P,D,M over the launched world")
+    return ap.parse_args(argv)
+
+
+def run(cfg, args: argparse.Namespace, mesh=None) -> dict:
+    """Serve one batch of ``cfg`` as ``args`` say (a ``ModelConfig``, so a
+    full config cut in depth runs in process); prints the reference's
+    lines and returns ``{"gen": (B, gen) int32 tokens, "prompts",
+    "prefill_ms", "decode_ms", "decode_steps", "tokens_per_s",
+    "weight_bytes", "cache_bytes", "hhe": window latency stats or None,
+    "device", "policy", "logits0": the prefill's last logits (float32,
+    on the host)}`` (times from CUDA events on the card).  ``mesh`` (a
+    ("data", "model") ``DeviceMesh`` over the started world) serves
+    sharded by the policy of ``cfg`` on it."""
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise RuntimeError(f"{e} (on the command line: --device cpu)") from e
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.causal:
-        raise SystemExit(f"{args.arch} is encoder-only; no decode serving")
+        raise SystemExit(f"{cfg.name} is encoder-only; no decode serving")
+    if mesh is None:
+        mesh = launch_mesh(args.production_mesh, args.mesh, args.device)
+    policy = None
+    if mesh is not None:
+        # this rank's card: the one asked for, else cuda:LOCAL_RANK
+        dev = init_distributed(args.device, verbose=False)
+        policy = make_policy(mesh, cfg, batch=args.batch, train=False,
+                             seq_len=args.prompt_len + args.gen)
+    lead = dist.get_rank() == 0 if dist.is_initialized() else True
+    say = print if lead else (lambda *a, **k: None)
     max_len = args.prompt_len + args.gen
 
-    prefill = make_prefill_step(cfg, max_len, device=dev)
-    decode = make_decode_step(cfg, device=dev)
+    prefill = make_prefill_step(cfg, max_len, device=dev, policy=policy)
+    decode = make_decode_step(cfg, device=dev, policy=policy)
 
-    params = M.init_params(cfg, seed=args.seed, device=dev).cast_for_serving()
+    params = M.init_params(cfg, seed=args.seed, device=dev,
+                           policy=policy).cast_for_serving()
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    if policy is not None:
+        say(f"sharded: mesh {dict(policy.axes)}, {policy.describe()}, "
+            f"backend {dist.get_backend()}")
 
     chan = None
-    if args.encrypted:
+    if args.encrypted and lead:
         plan = None
         if args.plan or args.autotune:
             from repro_torch.core.params import get_params
@@ -283,7 +319,7 @@ def main(argv=None) -> dict:
                         f"no StreamPlan cached for {args.cipher}/"
                         f"lanes={lanes} on this host in "
                         f"{args.plan} — run with --autotune first")
-            print(f"serving from measured StreamPlan: {plan.describe()}")
+            say(f"serving from measured StreamPlan: {plan.describe()}")
         chan = EncryptedChannel(args.cipher, args.batch, engine=args.engine,
                                 window=args.window, seed=args.seed,
                                 variant=args.schedule_variant, plan=plan,
@@ -291,22 +327,29 @@ def main(argv=None) -> dict:
         cts = chan.client_encrypt(prompts)                 # client side
         tokens = chan.serve_decrypt_prompts(cts, args.prompt_len)
         np.testing.assert_array_equal(tokens, prompts)
-        print(f"prompts arrived HHE-encrypted; decrypted through "
+        say(f"prompts arrived HHE-encrypted; decrypted through "
               f"KeystreamFarm windows (engine={chan.server.farm.engine.name}"
               f", schedule={chan.server.farm.engine.variant}"
               f", producer={chan.batch.producer.name}"
               f", depth={chan.server.farm.depth}"
               f", window={chan.server.window}, "
               f"{args.batch} sessions)")
+    elif args.encrypted:
+        tokens = np.zeros_like(prompts)      # rank 0's arrive by scatter
     else:
         tokens = prompts
     batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64)}
 
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
     t0 = time.time()
     span = _span(dev)
     logits, cache, cur_len = prefill(params, batch)
+    logits = whole(logits)
     prefill_ms = span()
-    print(f"prefill {args.batch}x{args.prompt_len}: {time.time()-t0:.3f}s")
+    say(f"prefill {args.batch}x{args.prompt_len}: {time.time()-t0:.3f}s")
+    logits0 = logits[:, -1].float().cpu()
 
     toks = torch.argmax(logits[:, -1:], dim=-1)
     out = [toks]
@@ -315,14 +358,14 @@ def main(argv=None) -> dict:
     for _ in range(args.gen - 1):
         cur_len = cur_len + 1
         logits, cache = decode(params, cache, toks, cur_len)
-        toks = torch.argmax(logits[:, -1:], dim=-1)
+        toks = torch.argmax(whole(logits)[:, -1:], dim=-1)
         out.append(toks)
     decode_ms = span()
     dt = time.time() - t0
     gen = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
-    print(f"decoded {args.gen-1} steps in {dt:.3f}s "
-          f"({(args.gen-1)*args.batch/max(dt,1e-9):.1f} tok/s)")
-    print("sample:", gen[0][:16])
+    say(f"decoded {args.gen-1} steps in {dt:.3f}s "
+        f"({(args.gen-1)*args.batch/max(dt,1e-9):.1f} tok/s)")
+    say("sample:", gen[0][:16])
 
     stats = None
     if chan is not None:
@@ -331,17 +374,22 @@ def main(argv=None) -> dict:
             back = chan.client_decrypt(ct, ctrs, i, gen.shape[1])
             np.testing.assert_array_equal(back, gen[i])
         stats = chan.latency_stats()
-        print(f"responses re-encrypted through the farm; round-trip "
-              f"verified client-side ({len(enc)} lanes)")
-        print(f"HHE window latency: count={stats['count']} "
-              f"p50={stats['p50_ms']:.2f}ms p99={stats['p99_ms']:.2f}ms")
+        say(f"responses re-encrypted through the farm; round-trip "
+            f"verified client-side ({len(enc)} lanes)")
+        say(f"HHE window latency: count={stats['count']} "
+            f"p50={stats['p50_ms']:.2f}ms p99={stats['p99_ms']:.2f}ms")
     steps = args.gen - 1
     return {"gen": gen, "prompts": prompts, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "decode_steps": steps,
             "tokens_per_s": steps * args.batch / max(decode_ms / 1e3, 1e-12),
             "weight_bytes": params.weight_bytes(),
             "cache_bytes": M.cache_bytes(cache), "hhe": stats,
-            "device": str(dev)}
+            "device": str(dev), "policy": policy, "logits0": logits0}
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return run(get_config(args.arch, smoke=args.smoke), args)
 
 
 if __name__ == "__main__":

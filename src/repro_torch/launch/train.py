@@ -4,8 +4,19 @@
         --smoke --steps 50 --batch 8 --seq 128 --encrypted \
         --cipher rubato-128l [--device cpu]
 
-The port's copy of `repro.launch.train`, on one device (default: the card;
-``--production-mesh`` belongs to the multi-card slice).  Includes
+    # a sharded world: every rank runs this (SPMD)
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch granite-3-8b --smoke --steps 3 --mesh 2,2 --device cpu
+
+The port's copy of `repro.launch.train` (default device: the card).
+``--production-mesh`` trains on the reference's (16, 16) mesh and raises,
+naming the world it needs, in any other world; ``--mesh D,M`` (or
+``P,D,M``) lays a ("data", "model") (or ("pod", "data", "model")) mesh
+over the launched world; a world of several ranks needs one of the two,
+and each rank takes the card of its ``LOCAL_RANK`` unless ``--device``
+names one.  On a mesh the parameters and moments are DTensors
+laid out by the sharding policy, every rank makes and encrypts the same
+batches, and rank 0 prints and writes checkpoints.  Includes
 checkpoint/restart (``--ckpt-dir``, auto-resume), the straggler watchdog,
 deterministic resumable data and the optional HHE-encrypted data plane:
 the client side encrypts each batch on the host with the cipher's plain
@@ -31,7 +42,9 @@ from repro_torch.data.encrypted import EncryptedSource, make_decryptor
 from repro_torch.data.pipeline import make_source
 from repro_torch.device import resolve_device
 from repro_torch.launch.elastic import StragglerWatchdog
+from repro_torch.launch.mesh import init_distributed, launch_mesh
 from repro_torch.models import model as M
+from repro_torch.models.sharding import make_policy
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.train_loop import make_train_step
@@ -59,23 +72,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch path on the host)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh: a world of 256")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh shape D,M or P,D,M over the launched world")
     return ap.parse_args(argv)
 
 
-def run(cfg: ModelConfig, args: argparse.Namespace, observe=None) -> dict:
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def run(cfg: ModelConfig, args: argparse.Namespace, observe=None,
+        mesh=None, hbm_bytes=None) -> dict:
     """Train ``cfg`` as ``args`` say; prints the reference's lines.
+    ``mesh`` (a ("data", "model") ``DeviceMesh`` over the started world)
+    trains sharded by the policy of ``cfg`` on it (``hbm_bytes``: one
+    rank's memory for its FSDP decision, default the device's); so do
+    ``--production-mesh`` and ``--mesh``.
     ``observe(step, params, batch, metrics)`` is called after each step
     with the updated parameters and the plaintext batch the step trained
     on.  Returns ``{"params",
     "opt_state", "history": per step {"step", "loss", "grad_norm", "lr",
     "decrypt_ms", "fwd_bwd_ms", "adamw_ms", "step_ms", "data_s",
-    "wall_s"}, "start_step", "watchdog_events", "device"}`` (device times
+    "wall_s"}, "start_step", "watchdog_events", "device", "policy"}``
+    (device times
     from CUDA events on the card; ``data_s`` is the host's wall time to
     fetch, and encrypt, the batch; ``wall_s`` the step's, to its loss)."""
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise RuntimeError(f"{e} (on the command line: --device cpu)") from e
+    if mesh is None:
+        mesh = launch_mesh(args.production_mesh, args.mesh, args.device)
+    policy = None
+    if mesh is not None:
+        # this rank's card: the one asked for, else cuda:LOCAL_RANK
+        dev = init_distributed(args.device, verbose=False)
+        policy = make_policy(mesh, cfg, batch=args.batch, train=True,
+                             seq_len=args.seq, hbm_bytes=hbm_bytes)
+    lead = _rank() == 0
     opt = OptConfig(lr=args.lr, eightbit=cfg.opt_8bit,
                     total_steps=args.steps,
                     warmup_steps=max(args.steps // 20, 5))
@@ -89,14 +127,18 @@ def run(cfg: ModelConfig, args: argparse.Namespace, observe=None) -> dict:
                                                engine="auto", device=dev))
 
     step_fn = make_train_step(cfg, opt, microbatch=args.microbatch,
-                              decryptor=decryptor, device=dev)
+                              decryptor=decryptor, device=dev, policy=policy)
 
-    params = M.init_params(cfg, seed=args.seed, device=dev).requires_grad_()
+    params = M.init_params(cfg, seed=args.seed, device=dev,
+                           policy=policy).requires_grad_()
     opt_state = init_opt_state(params, opt)
     start_step = 0
+    if policy is not None and lead:
+        print(f"sharded: mesh {dict(policy.axes)}, {policy.describe()}")
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
         _, start_step, _ = ckpt.restore(args.ckpt_dir, (params, opt_state))
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
 
     watchdog = StragglerWatchdog()
     history = []
@@ -111,7 +153,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, observe=None) -> dict:
                                              times=times)
         loss = float(metrics["loss"])
         dt = time.time() - t0
-        if watchdog.observe(step, dt):
+        if watchdog.observe(step, dt) and lead:
             print(f"[watchdog] straggler event at step {step}: {dt:.2f}s")
         history.append({"step": step, "loss": loss,
                         "grad_norm": float(metrics["grad_norm"]),
@@ -119,7 +161,7 @@ def run(cfg: ModelConfig, args: argparse.Namespace, observe=None) -> dict:
                         **times})
         if observe is not None:
             observe(step, params, step_fn.last_batch, metrics)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"lr {metrics['lr']:.2e}  {dt*1e3:.0f} ms  "
@@ -130,10 +172,12 @@ def run(cfg: ModelConfig, args: argparse.Namespace, observe=None) -> dict:
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, (params, opt_state),
                   extra={"data_step": args.steps})
-    print("done")
+    if lead:
+        print("done")
     return {"params": params, "opt_state": opt_state, "history": history,
             "start_step": start_step, "watchdog_events": watchdog.events,
-            "device": str(dev)}
+            "device": str(dev), "policy": policy}
+
 
 
 def main(argv=None) -> dict:

@@ -4,7 +4,8 @@
 reference's parameter tree (``{"embed", ..., "blocks": [slot dicts]}``)
 as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``: the same
 names and layouts, so it is a name-for-name copy with no transposes.
-:func:`params_to_numpy` is its inverse.  Only numpy arrays cross, so
+:func:`params_to_numpy` is its inverse (a sharded model's leaves are
+gathered, on every rank).  Only numpy arrays cross, so
 nothing here imports the reference.
 
 bfloat16 leaves cross as their bits: the reference's (an ``ml_dtypes``
@@ -23,7 +24,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, iter_defs, param_dtype
+from repro_torch.models.model import (
+    Model,
+    param_spec,
+    iter_defs,
+    param_dtype,
+    place,
+)
 
 
 def _leaf(tree, path):
@@ -45,15 +52,21 @@ def _to_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def params_from_reference(cfg: ModelConfig, tree, device=None) -> Model:
+def params_from_reference(cfg: ModelConfig, tree, device=None,
+                          policy=None) -> Model:
     """Reference parameter tree (numpy leaves) -> :class:`Model` on
     ``device`` (default: the card).  Every leaf's dtype is checked here
     and its shape by :class:`Model`, against
-    :func:`repro_torch.models.model.param_defs`."""
+    :func:`repro_torch.models.model.param_defs`.  With a ``policy`` every
+    rank passes the same tree and keeps its shard of each leaf (a DTensor
+    laid out by ``param_specs``), one leaf at a time."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {"blocks": [{} for _ in cfg.group]}
     for path, d in iter_defs(cfg):
         t = _to_tensor(_leaf(tree, path), param_dtype(cfg, d)).to(dev)
+        if policy is not None:
+            t = place(t, policy, param_spec(cfg, d, policy),
+                      src_data_rank=None)
         if path[0] == "blocks":
             out["blocks"][path[1]][path[2]] = t
         else:
@@ -66,7 +79,10 @@ def params_to_numpy(model: Model) -> Dict[str, Any]:
     ``uint16`` bit patterns for bfloat16)."""
     out: Dict[str, Any] = {"blocks": [{} for _ in model.cfg.group]}
     for path, _ in iter_defs(model.cfg):
-        t = model.tensor(path).detach().cpu()
+        t = model.tensor(path).detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        t = t.cpu()
         a = (t.view(torch.int16).numpy().view(np.uint16)
              if t.dtype == torch.bfloat16 else t.numpy()).copy()
         if path[0] == "blocks":

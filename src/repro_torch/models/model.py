@@ -6,8 +6,7 @@ architecture exposes:
     prefill(cfg, params, batch, max_len)          -> (last_logits, cache, cur_len)
     decode_step(cfg, params, cache, tok, cur_len) -> (logits, cache)
 
-The port's copy of `repro.models.model` without its sharding.  Layer
-heterogeneity is a repeating group of LayerSpecs; each slot's parameters
+The port's copy of `repro.models.model`.  Layer heterogeneity is a repeating group of LayerSpecs; each slot's parameters
 are stacked over ``num_groups`` (leading ``G`` dimension, the reference's
 layouts and names), and the stack is walked by a Python loop where the
 reference scans.  :class:`Model` holds them: ``params["embed"]``,
@@ -18,10 +17,25 @@ Training walks each stacked leaf as ``torch.unbind`` slices, so the
 backward stacks a leaf's gradient once; with ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's per-layer ``jax.checkpoint`` with ``nothing_saveable``.
+
+Sharded (``shardings=``, from ``train_loop.act_shardings``): the
+parameters, batch and cache are DTensors laid out by :func:`param_specs`,
+``batch_specs`` and :func:`cache_specs`, most ops run through DTensor's
+sharding propagation, and each of the reference's
+``with_sharding_constraint`` points is a ``redistribute``.  Where DTensor
+has no usable rule, a per-rank body runs on the shards GSPMD would use:
+attention (query heads split over tp_a x tp_b, against the KV heads they
+read), the Mamba2 convs and SSD scan (heads split, B and C whole), and
+the expert-parallel MoE (:func:`repro_torch.models.moe.moe_ffn_sharded`);
+the embedding gather reads the whole table, and the CE contracts a
+one-hot as the reference does.  Plain tensors (positions, masks) count
+as replicated inside :func:`sharded_context`, which the backward needs
+too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -29,6 +43,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -43,6 +59,7 @@ from repro_torch.models.layers import (
     pdtype_of,
     rms_norm,
 )
+from repro_torch.models.sharding import P, run_local
 
 
 # ===========================================================================
@@ -231,16 +248,90 @@ class Model(nn.Module):
         for path, d in iter_defs(self.cfg):
             if d.dtype is None:
                 p = self.tensor(path)
-                p.data = p.data.to(dt)
+                if isinstance(p, DTensor):
+                    # a DTensor's .data cannot change dtype: a new leaf
+                    new = nn.Parameter(p.detach().to(dt),
+                                       requires_grad=p.requires_grad)
+                    if path[0] == "blocks":
+                        self.blocks[path[1]][path[2]] = new
+                    else:
+                        setattr(self, path[0], new)
+                    del p
+                else:
+                    p.data = p.data.to(dt)
         return self
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
+# ===========================================================================
+# Sharding: specs and placement (the reference's param_specs/cache_specs)
+# ===========================================================================
+_UNSTACKED_ROLES = ("embed", "head", "frontend", "norm", "scalar")
+
+
+def param_spec(cfg: ModelConfig, d: ParamDef, policy) -> tuple:
+    base = tuple(policy.spec(d.role, cfg))
+    # block-stacked params have a leading group dim: prepend None
+    if d.role not in _UNSTACKED_ROLES and len(d.shape) > len(base):
+        return P(None, *base)
+    return base
+
+
+def param_specs(cfg: ModelConfig, policy) -> Dict[str, Any]:
+    """The parameter tree's specs (tuples, see
+    :mod:`repro_torch.models.sharding`), shaped as :func:`param_defs`."""
+    defs = param_defs(cfg)
+    out: Dict[str, Any] = {k: param_spec(cfg, d, policy)
+                           for k, d in defs.items() if k != "blocks"}
+    out["blocks"] = [{k: param_spec(cfg, d, policy) for k, d in slot.items()}
+                     for slot in defs["blocks"]]
+    return out
+
+
+def cache_specs(cfg: ModelConfig, policy) -> tuple:
+    """The cache's specs, shaped as :func:`init_cache`'s slots."""
+    slots = []
+    for spec in cfg.group:
+        if spec.kind == "attn":
+            s = P(None, *policy.cache_spec())
+            slots.append({"k": s, "v": s})
+        else:
+            hs = P(None, *policy.ssm_cache_spec())
+            b = policy.dp if not policy.seq_shard_data else None
+            slots.append({"h": hs, "conv_x": P(None, b, None, policy.tp_full),
+                          "conv_B": P(None, b, None, None),
+                          "conv_C": P(None, b, None, None)})
+    return tuple(slots)
+
+
+def place(t: torch.Tensor, policy, spec, src_data_rank: Optional[int] = 0):
+    """``t`` as a DTensor on the policy's mesh with ``spec``'s placements.
+    ``src_data_rank=0`` scatters rank 0's tensor (the others pass one of
+    the same shape); ``None`` keeps each rank's own slice of its own
+    ``t`` and moves nothing, and no more than the shard is kept."""
+    from torch.distributed.tensor import distribute_tensor
+
+    pl = policy.placements(spec)
+    out = distribute_tensor(t, policy.mesh, pl, src_data_rank=src_data_rank)
+    loc = out.to_local()
+    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+        # a view of the full tensor would keep all of it alive
+        out = DTensor.from_local(loc.clone(), policy.mesh, pl,
+                                 shape=out.shape, stride=out.stride())
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                policy=None) -> Model:
     """Random masters from one ``torch.Generator`` on ``device`` (default:
     the card), with the reference's distributions and scales; the numbers
     are not the reference's (carry those with
     :func:`repro_torch.models.convert.params_from_reference`).
-    ``.requires_grad_()`` on the result gives them gradients."""
+    ``.requires_grad_()`` on the result gives them gradients.
+
+    With a ``policy`` (its mesh started), every rank makes each full leaf
+    in turn from the same generator and keeps its shard as a DTensor
+    (:func:`param_specs`): the same weights as without one, and no rank
+    holds more than one full leaf at a time."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -262,24 +353,71 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
 
     tree: Dict[str, Any] = {"blocks": [{} for _ in cfg.group]}
     for path, d in iter_defs(cfg):
+        t = mk(d)
+        if policy is not None:
+            t = place(t, policy, param_spec(cfg, d, policy),
+                      src_data_rank=None)
         if path[0] == "blocks":
-            tree["blocks"][path[1]][path[2]] = mk(d)
+            tree["blocks"][path[1]][path[2]] = t
         else:
-            tree[path[0]] = mk(d)
+            tree[path[0]] = t
     return Model(cfg, tree)
 
 
 # ===========================================================================
 # Forward pass
 # ===========================================================================
+def _policy(shardings):
+    return shardings.get("_policy") if shardings else None
+
+
+def sharded_context(shardings):
+    """The context a sharded pass runs in: plain tensors (positions,
+    masks, scalars) count as replicated DTensors, as GSPMD treats
+    constants."""
+    if _policy(shardings) is None:
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+def _wsc(x, shardings, name):
+    """The reference's ``with_sharding_constraint``: a DTensor is
+    redistributed to the placements of the spec named ``name``; anything
+    else is returned as it is."""
+    if not isinstance(x, DTensor) or shardings is None:
+        return x
+    spec = shardings.get(name)
+    if spec is None:
+        return x
+    pl = shardings["_policy"].placements(spec)
+    return x if tuple(x.placements) == pl else x.redistribute(
+        x.device_mesh, pl)
+
+
+def _replicated(t: DTensor) -> tuple:
+    """``Replicate()`` on every dim of ``t``'s mesh."""
+    from torch.distributed.tensor import Replicate
+
+    return (Replicate(),) * t.device_mesh.ndim
+
+
 def _embed_inputs(cfg: ModelConfig, params, batch):
     dt = dtype_of(cfg)
     if cfg.frontend != "none" and "embeds" in batch:
         x = torch.einsum("btf,fd->btd", batch["embeds"].to(dt),
                          params["frontend_proj"].to(dt))
     else:
+        table, tokens = params["embed"], batch["tokens"]
+        if isinstance(table, DTensor):
+            # the gather's backward (index_put into a split table) has no
+            # working DTensor rule in every torch: gather from the whole
+            # table with every token, as GSPMD may
+            rep = _replicated(table)
+            table = table.redistribute(table.device_mesh, rep)
+            if isinstance(tokens, DTensor):
+                tokens = tokens.redistribute(tokens.device_mesh, rep)
         # gather, then cast: the same numbers as casting the whole table
-        x = params["embed"][batch["tokens"]].to(dt)
+        x = table[tokens].to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
@@ -298,8 +436,94 @@ def _slot(p, g: int) -> Dict[str, torch.Tensor]:
     return {k: v[g] for k, v in p.items()}
 
 
+def _write(dst, start: int, src):
+    """``dst[:, start:start + n] = src`` (n = src.shape[1]) for a cache
+    view (B, S, ...); a DTensor ``dst`` is written on each rank's own
+    shard, whichever rows of S it holds."""
+    if not isinstance(dst, DTensor):
+        dst[:, start:start + src.shape[1]] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    mesh, pl = dst.device_mesh, dst.placements
+    if isinstance(src, DTensor):     # dst's layout, with S whole
+        src = src.redistribute(mesh, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in pl)).to_local()
+    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    lo = max(start, off[1])
+    hi = min(start + src.shape[1], off[1] + shape[1])
+    if lo < hi:
+        dst.to_local()[:, lo - off[1]:hi - off[1]] = \
+            src[:, lo - start:hi - start]
+
+
+def _assign(dst, src):
+    """``dst.copy_(src)``, on each rank's own shard for DTensors."""
+    if isinstance(dst, DTensor):
+        if isinstance(src, DTensor):
+            src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+        dst.to_local().copy_(src)
+    else:
+        dst.copy_(src)
+
+
+def _attn_sharded(cfg, spec, q, k, v, policy, cache_kv, cur_len):
+    """Attention on DTensors: q (B, T, H, hd), k/v (B, T, K, hd).  Query
+    heads split over ("tp_a", "tp_b") as the reference's "q" constraint
+    splits them, KV heads over "tp_a" (its "kv"); batch over dp, or
+    nothing where the sequence is sharded (attention needs it whole).
+    Each rank attends its own query heads against the KV heads they read,
+    so no collective runs inside; the output keeps q's layout.  A decode
+    step first writes the new keys into the cache views, on each rank's
+    own shard."""
+    G = cfg.num_heads // cfg.kv_heads
+    b = None if policy.seq_shard_data else policy.dp
+    q_pl = policy.placements((b, None, policy.tp_heads, None))
+    kv_pl = policy.placements((b, None, "tp_a", None))
+    coord_a = policy.coord("tp_a")
+    coord = coord_a * policy.tp_b + policy.coord("tp_b")
+    if cache_kv is not None:
+        for c, new in zip(cache_kv, (k, v)):
+            _write(c, cur_len - 1, new)
+        k, v = cache_kv
+
+    def body(ql, kl, vl):
+        Bl, Tl, Hl, hd = ql.shape
+        h0 = coord * Hl                      # first global head held here
+        i0 = h0 // G - coord_a * kl.shape[2]  # its KV head, locally
+        if Hl % G == 0 and h0 % G == 0:      # whole groups
+            kp, gp = Hl // G, G
+            ks, vs = kl[:, :, i0:i0 + kp], vl[:, :, i0:i0 + kp]
+        elif G % Hl == 0:                    # part of one group
+            kp, gp = 1, Hl
+            ks, vs = kl[:, :, i0:i0 + 1], vl[:, :, i0:i0 + 1]
+        else:                                # any heads: one KV each
+            kp, gp = Hl, 1
+            idx = (h0 + torch.arange(Hl, device=ql.device)) // G \
+                - coord_a * kl.shape[2]
+            ks, vs = kl[:, :, idx], vl[:, :, idx]
+        q5 = ql.reshape(Bl, Tl, kp, gp, hd)
+        if cache_kv is None:
+            o = A.blockwise_attention(q5, ks, vs, causal=cfg.causal,
+                                      window=spec.window,
+                                      softcap=cfg.attn_softcap)
+        else:
+            o = A.decode_attention(q5, ks, vs, cur_len, window=spec.window,
+                                   softcap=cfg.attn_softcap)
+        return (o.reshape(Bl, Tl, Hl, hd),)
+
+    # the "tp_b" ranks read the same KV heads for different query heads
+    (o,) = run_local(body, policy, [(q, q_pl), (k, kv_pl), (v, kv_pl)],
+                      [q_pl], split=("tp_b",))
+    return o, (k, v)
+
+
 def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
-                cache_kv=None, cur_len=None):
+                cache_kv=None, cur_len=None, shardings=None):
     """Returns (attn_out, (k, v)): the new keys and values for a prompt,
     the updated cache views for a decode step (written in place)."""
     dt = dtype_of(cfg)
@@ -313,56 +537,61 @@ def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
     if cfg.rope_kind != "none":
         q = A.apply_rope(q, cos, sin)
         k = A.apply_rope(k, cos, sin)
-    q = q.reshape(B, T, K, G, hd)
-
-    if cache_kv is None:
-        o = A.blockwise_attention(q, k, v, causal=cfg.causal,
-                                  window=spec.window,
-                                  softcap=cfg.attn_softcap)
-        new_kv = (k, v)
+    policy = _policy(shardings)
+    if policy is not None and isinstance(q, DTensor):
+        o, new_kv = _attn_sharded(cfg, spec, q, k, v, policy, cache_kv,
+                                  cur_len)
     else:
-        k_cache, v_cache = cache_kv
-        if T == 1:
-            k_cache[:, cur_len - 1] = k[:, 0]
-            v_cache[:, cur_len - 1] = v[:, 0]
-        o = A.decode_attention(q, k_cache, v_cache, cur_len,
-                               window=spec.window, softcap=cfg.attn_softcap)
-        new_kv = (k_cache, v_cache)
-    o = o.reshape(B, T, H, hd)
-    out = torch.einsum("btnh,nhd->btd", o, p["wo"].to(dt))
+        q = q.reshape(B, T, K, G, hd)
+        if cache_kv is None:
+            o = A.blockwise_attention(q, k, v, causal=cfg.causal,
+                                      window=spec.window,
+                                      softcap=cfg.attn_softcap)
+            new_kv = (k, v)
+        else:
+            k_cache, v_cache = cache_kv
+            if T == 1:
+                k_cache[:, cur_len - 1] = k[:, 0]
+                v_cache[:, cur_len - 1] = v[:, 0]
+            o = A.decode_attention(q, k_cache, v_cache, cur_len,
+                                   window=spec.window,
+                                   softcap=cfg.attn_softcap)
+            new_kv = (k_cache, v_cache)
+    # the output projection over (heads, head dim) flattened head-major,
+    # sharded or not (one order of the sums): an einsum may merge the two
+    # in the other order, which DTensor cannot lay out for split heads
+    out = torch.matmul(o.reshape(B, T, H * hd),
+                       p["wo"].to(dt).reshape(H * hd, D))
     return out, new_kv
 
 
-def _mamba_apply(cfg: ModelConfig, p, x, cache=None):
-    """Mamba2 block.  Returns (out, state): the prompt's final state, or
-    the cache views updated in place for a decode step."""
+def _ssm_core(cfg: ModelConfig, xz, Bm, Cm, dtv, Aneg, D_skip, conv_x,
+              conv_B, conv_C, cache=None):
+    """The Mamba2 mixer between the projections and the gate: causal
+    convs, SSD scan (or one recurrent step against ``cache``, written in
+    place) and the D skip.  Heads are independent, so any whole-head
+    slice of (xz, dtv, Aneg, D_skip, conv_x) with B and C whole gives
+    that slice of the output.  Returns (y (B, T, h*hd), state)."""
     dt_ = dtype_of(cfg)
-    B, T, D = x.shape
-    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    xz = torch.einsum("btd,de->bte", x, p["w_x"].to(dt_))
-    z = torch.einsum("btd,de->bte", x, p["w_z"].to(dt_))
-    Bm = torch.einsum("btd,ds->bts", x, p["w_B"].to(dt_))
-    Cm = torch.einsum("btd,ds->bts", x, p["w_C"].to(dt_))
-    dt_raw = torch.einsum("btd,dh->bth", x, p["w_dt"].to(dt_))
-    dtv = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    Aneg = -torch.exp(p["A_log"].float())
-
+    B, T, _ = xz.shape
+    hd = cfg.ssm_head_dim
+    h = xz.shape[-1] // hd
     w = cfg.conv_width
     if cache is None:
         # the conv tail comes from the *pre-activation* conv inputs
         new_cache = {"conv_x": xz[:, T - (w - 1):],
                      "conv_B": Bm[:, T - (w - 1):],
                      "conv_C": Cm[:, T - (w - 1):]}
-        xc = F.silu(M2.causal_conv(xz, p["conv_x"].to(dt_)))
-        Bc = F.silu(M2.causal_conv(Bm, p["conv_B"].to(dt_)))
-        Cc = F.silu(M2.causal_conv(Cm, p["conv_C"].to(dt_)))
+        xc = F.silu(M2.causal_conv(xz, conv_x.to(dt_)))
+        Bc = F.silu(M2.causal_conv(Bm, conv_B.to(dt_)))
+        Cc = F.silu(M2.causal_conv(Cm, conv_C.to(dt_)))
         xh = xc.reshape(B, T, h, hd)
         y, new_cache["h"] = M2.ssd_chunked(xh, dtv, Aneg, Bc, Cc,
                                            cfg.ssm_chunk)
     else:
-        xt, cs_x = M2.conv_decode(xz[:, 0], cache["conv_x"], p["conv_x"].to(dt_))
-        Bt, cs_B = M2.conv_decode(Bm[:, 0], cache["conv_B"], p["conv_B"].to(dt_))
-        Ct, cs_C = M2.conv_decode(Cm[:, 0], cache["conv_C"], p["conv_C"].to(dt_))
+        xt, cs_x = M2.conv_decode(xz[:, 0], cache["conv_x"], conv_x.to(dt_))
+        Bt, cs_B = M2.conv_decode(Bm[:, 0], cache["conv_B"], conv_B.to(dt_))
+        Ct, cs_C = M2.conv_decode(Cm[:, 0], cache["conv_C"], conv_C.to(dt_))
         xt, Bt, Ct = F.silu(xt), F.silu(Bt), F.silu(Ct)
         xh = xt.reshape(B, 1, h, hd)
         y1, h_next = M2.ssd_decode(xh[:, 0], dtv[:, 0], Aneg, Bt, Ct,
@@ -372,22 +601,89 @@ def _mamba_apply(cfg: ModelConfig, p, x, cache=None):
                           ("conv_C", cs_C)):
             cache[name].copy_(new)
         new_cache = cache
-
     # D skip-connection (per head, broadcast over head_dim)
-    y = y + p["D_skip"].float()[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, T, h * hd)
+    y = y + D_skip.float()[None, None, :, None].to(y.dtype) * xh
+    return y.reshape(B, T, h * hd), new_cache
+
+
+_SSM_STATE = ("h", "conv_x", "conv_B", "conv_C")
+
+
+def _ssm_sharded(cfg: ModelConfig, policy, args, cache):
+    """:func:`_ssm_core` on DTensors: heads over the model axes where they
+    divide into whole heads per rank (else every rank runs all of them),
+    B and C whole, batch over dp (the sequence whole: the scan needs
+    it).  The state comes back in the cache's layout."""
+    tp = policy.tp_full if cfg.ssm_heads % policy.model_size == 0 else None
+    b = None if policy.seq_shard_data else policy.dp
+    chan = policy.placements((b, None, tp))        # (B, T, channels)
+    rep = policy.placements((b, None, None))
+    vec = policy.placements((tp,))
+    conv = policy.placements((None, tp))
+    whole = policy.placements((None, None))
+    st_pl = {"h": policy.placements((b, tp, None, None)), "conv_x": chan,
+             "conv_B": rep, "conv_C": rep}
+    xz, Bm, Cm, dtv, Aneg, D_skip, conv_x, conv_B, conv_C = args
+    ins = [(xz, chan), (Bm, rep), (Cm, rep), (dtv, chan), (Aneg, vec),
+           (D_skip, vec), (conv_x, conv), (conv_B, whole), (conv_C, whole)]
+    if cache is not None:
+        # the step runs on copies in the core's layout, written back after
+        ins += [(cache[n], st_pl[n]) for n in _SSM_STATE]
+
+    def body(*locs):
+        st = None if cache is None else dict(zip(_SSM_STATE, locs[9:]))
+        y, new = _ssm_core(cfg, *locs[:9], cache=st)
+        return (y,) + tuple(new[n] for n in _SSM_STATE)
+
+    # heads (where tp) and batch rows (where b) split across ranks
+    split = (tp or ()) + (b or ())
+    y, *state = run_local(body, policy, ins,
+                           [chan] + [st_pl[n] for n in _SSM_STATE], split)
+    new = dict(zip(_SSM_STATE, state))
+    if cache is not None:
+        for n in _SSM_STATE:
+            _assign(cache[n], new[n])
+        new = cache
+    return y, new
+
+
+def _mamba_apply(cfg: ModelConfig, p, x, cache=None, shardings=None):
+    """Mamba2 block.  Returns (out, state): the prompt's final state, or
+    the cache views updated in place for a decode step."""
+    dt_ = dtype_of(cfg)
+    xz = _wsc(torch.einsum("btd,de->bte", x, p["w_x"].to(dt_)), shardings,
+              "ssm_inner")
+    z = _wsc(torch.einsum("btd,de->bte", x, p["w_z"].to(dt_)), shardings,
+             "ssm_inner")
+    Bm = torch.einsum("btd,ds->bts", x, p["w_B"].to(dt_))
+    Cm = torch.einsum("btd,ds->bts", x, p["w_C"].to(dt_))
+    dt_raw = torch.einsum("btd,dh->bth", x, p["w_dt"].to(dt_))
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    Aneg = -torch.exp(p["A_log"].float())
+    args = (xz, Bm, Cm, dtv, Aneg, p["D_skip"], p["conv_x"], p["conv_B"],
+            p["conv_C"])
+    policy = _policy(shardings)
+    if policy is not None and isinstance(xz, DTensor):
+        y, new_cache = _ssm_sharded(cfg, policy, args, cache)
+    else:
+        y, new_cache = _ssm_core(cfg, *args, cache=cache)
     gated = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     out = torch.einsum("bte,ed->btd", gated.to(dt_), p["w_out"].to(dt_))
     return out, new_cache
 
 
-def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x):
-    """Dense or MoE FFN.  Returns (out, aux_loss)."""
+def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):
+    """Dense or MoE FFN.  Returns (out, aux_loss).  Under a policy the MoE
+    runs expert-parallel (:func:`repro_torch.models.moe.moe_ffn_sharded`),
+    as the reference's does."""
     dt = dtype_of(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
-        y, aux = MOE.moe_ffn(cfg, x, p["router"], p["e_wi_g"].to(dt),
-                             p["e_wi_u"].to(dt), p["e_wo"].to(dt))
+        policy = _policy(shardings)
+        moe = (MOE.moe_ffn if policy is None else
+               lambda *a: MOE.moe_ffn_sharded(*a, policy))
+        y, aux = moe(cfg, x, p["router"], p["e_wi_g"].to(dt),
+                     p["e_wi_u"].to(dt), p["e_wo"].to(dt))
         if cfg.dense_residual:
             y = y + gated_mlp(x, p["wi_g"].to(dt), p["wi_u"].to(dt),
                               p["wo_m"].to(dt))
@@ -403,7 +699,7 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x):
 
 
 def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
-                 cache=None, cur_len=None):
+                 cache=None, cur_len=None, shardings=None):
     """One layer: (attn|mamba) + optional FFN, pre-norm residual.
     Returns (x, new_cache, aux)."""
     h_in = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -411,11 +707,12 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
         mix, new_cache = _attn_apply(
             cfg, spec, p, h_in, cos, sin,
             cache_kv=None if cache is None else (cache["k"], cache["v"]),
-            cur_len=cur_len)
+            cur_len=cur_len, shardings=shardings)
         if cache is not None:
             new_cache = {"k": new_cache[0], "v": new_cache[1]}
     else:
-        mix, new_cache = _mamba_apply(cfg, p, h_in, cache=cache)
+        mix, new_cache = _mamba_apply(cfg, p, h_in, cache=cache,
+                                      shardings=shardings)
     if cfg.sandwich_norm:
         mix = rms_norm(mix, p["post_norm"], cfg.norm_eps)
     x = x + mix
@@ -423,14 +720,14 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff > 0:
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        y, aux = _ffn_apply(cfg, spec, p, h2)
+        y, aux = _ffn_apply(cfg, spec, p, h2, shardings=shardings)
         if cfg.sandwich_norm:
             y = rms_norm(y, p["post_norm2"], cfg.norm_eps)
         x = x + y
     return x, new_cache, aux
 
 
-def _logits(cfg: ModelConfig, params, x):
+def _logits(cfg: ModelConfig, params, x, shardings=None):
     dt = dtype_of(cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -440,7 +737,7 @@ def _logits(cfg: ModelConfig, params, x):
     logits = logits.float()
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-    return logits
+    return _wsc(logits, shardings, "logits")
 
 
 def _rope(cfg: ModelConfig, pos):
@@ -448,24 +745,30 @@ def _rope(cfg: ModelConfig, pos):
             else (None, None))
 
 
-def forward_hidden(cfg: ModelConfig, params, batch):
+def forward_hidden(cfg: ModelConfig, params, batch, shardings=None):
     """Run the layer stack.  Returns (hidden (B,T,D), aux_loss).
 
     Each stacked leaf is split once (``torch.unbind``): the backward of G
     slices is one stack, where indexing each group would write a zero
     tensor the size of the whole stack per group.  With ``cfg.remat`` and
     gradients on, each layer is checkpointed and recomputed in the
-    backward."""
-    x = _embed_inputs(cfg, params, batch)
-    T = x.shape[1]
-    cos, sin = _rope(cfg, _positions(cfg, batch, T))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = [{k: torch.unbind(v, 0) for k, v in p.items()}
-              for p in params["blocks"]]
+    backward.  ``shardings`` (``train_loop.act_shardings``) makes it a
+    sharded pass over DTensor parameters and batch: the layer-boundary
+    activations are redistributed to its "acts" spec."""
+    with sharded_context(shardings):
+        x = _embed_inputs(cfg, params, batch)
+        T = x.shape[1]
+        cos, sin = _rope(cfg, _positions(cfg, batch, T))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = _wsc(x, shardings, "acts")
+        layers = [{k: torch.unbind(v, 0) for k, v in p.items()}
+                  for p in params["blocks"]]
 
     def layer_fn(spec, p, x):
-        x, _, a = _block_apply(cfg, spec, p, x, cos, sin)
-        return x, a
+        with sharded_context(shardings):     # also when recomputed in backward
+            x, _, a = _block_apply(cfg, spec, p, x, cos, sin,
+                                   shardings=shardings)
+            return _wsc(x, shardings, "acts"), a
 
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(cfg.num_groups):
@@ -475,70 +778,93 @@ def forward_hidden(cfg: ModelConfig, params, batch):
                 x, a = checkpoint(layer_fn, spec, p, x, use_reentrant=False)
             else:
                 x, a = layer_fn(spec, p, x)
-            aux = aux + a
-    return x, aux / cfg.num_layers
+            with sharded_context(shardings):
+                aux = aux + a
+    with sharded_context(shardings):
+        return x, aux / cfg.num_layers
 
 
-def forward_train(cfg: ModelConfig, params, batch):
+def forward_train(cfg: ModelConfig, params, batch, shardings=None):
     """Full-sequence forward.  Returns (logits (B,T,Vp) f32, aux_loss)."""
-    x, aux = forward_hidden(cfg, params, batch)
-    return _logits(cfg, params, x), aux
+    x, aux = forward_hidden(cfg, params, batch, shardings)
+    with sharded_context(shardings):
+        return _logits(cfg, params, x, shardings), aux
 
 
-def _ce_terms(cfg: ModelConfig, params, x, labels):
+def _ce_terms(cfg: ModelConfig, params, x, labels, shardings=None):
     """(nll_sum, valid_count) of one chunk; its logits never escape.  The
-    label's logit is gathered (the reference contracts a one-hot, which
-    gives the same number)."""
-    logits = _logits(cfg, params, x)
-    valid = (labels >= 0) & (labels < cfg.vocab)
-    labels_c = torch.clamp(labels, 0, cfg.vocab_padded - 1).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels_c[..., None])[..., 0]
-    nll = (logz - ll) * valid
-    return nll.sum(), valid.sum()
+    label's logit is gathered; a sharded pass contracts a one-hot as the
+    reference does (the same number, and the vocab stays sharded)."""
+    with sharded_context(shardings):
+        logits = _logits(cfg, params, x, shardings)
+        valid = (labels >= 0) & (labels < cfg.vocab)
+        labels_c = torch.clamp(labels, 0, cfg.vocab_padded - 1).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        if isinstance(logits, DTensor):
+            viota = torch.arange(logits.shape[-1], device=logits.device)
+            ll = torch.where(viota == labels_c[..., None], logits,
+                             0.0).sum(-1)
+        else:
+            ll = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+        nll = (logz - ll) * valid
+        return nll.sum(), valid.sum()
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
-            ce_chunks: int = 8):
+            ce_chunks: int = 8, shardings=None):
     """CE loss with the head and softmax chunked over T: one (B, T/chunks,
     V) logits block at a time, checkpointed (recomputed in the backward)
     when gradients are on, so the full (B, T, V) tensor never exists.
     Returns (loss + aux_weight * aux, (ce, aux))."""
-    x, aux = forward_hidden(cfg, params, batch)
+    x, aux = forward_hidden(cfg, params, batch, shardings)
     labels = batch["labels"]
     T = x.shape[1]
     while T % ce_chunks:
         ce_chunks //= 2
     if ce_chunks <= 1:
-        ns, nv = _ce_terms(cfg, params, x, labels)
+        ns, nv = _ce_terms(cfg, params, x, labels, shardings)
     else:
         C = T // ce_chunks
         ns, nv = 0.0, 0
         for i in range(ce_chunks):
-            xi, li = x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+            with sharded_context(shardings):
+                xi = x[:, i * C:(i + 1) * C]
+                li = labels[:, i * C:(i + 1) * C]
             if torch.is_grad_enabled():
-                s, v = checkpoint(_ce_terms, cfg, params, xi, li,
+                s, v = checkpoint(_ce_terms, cfg, params, xi, li, shardings,
                                   use_reentrant=False)
             else:
-                s, v = _ce_terms(cfg, params, xi, li)
-            ns, nv = ns + s, nv + v
-    loss = ns / torch.clamp(nv, min=1)
-    return loss + aux_weight * aux, (loss, aux)
+                s, v = _ce_terms(cfg, params, xi, li, shardings)
+            with sharded_context(shardings):
+                ns, nv = ns + s, nv + v
+    with sharded_context(shardings):
+        loss = ns / torch.clamp(nv, min=1)
+        return loss + aux_weight * aux, (loss, aux)
 
 
 # ===========================================================================
 # Serving: cache init / prefill / decode
 # ===========================================================================
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               policy=None):
     """Cache: per slot a dict of zero tensors stacked over groups (leading
-    G dim), in the reference's layouts and dtypes."""
+    G dim), in the reference's layouts and dtypes; with a ``policy``,
+    DTensors laid out by :func:`cache_specs` (each rank makes only its
+    shard)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     G = cfg.num_groups
     K, hd = cfg.kv_heads, cfg.resolved_head_dim
+    specs = None if policy is None else iter(
+        s for slot in cache_specs(cfg, policy) for s in slot.values())
 
     def z(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        if specs is None:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        from torch.distributed.tensor import zeros
+
+        return zeros(shape, dtype=dtype, device_mesh=policy.mesh,
+                     placements=policy.placements(next(specs)))
 
     slots = []
     for spec in cfg.group:
@@ -562,39 +888,48 @@ def cache_bytes(cache) -> int:
                for t in slot.values())
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int):
+def prefill(cfg: ModelConfig, params, batch, max_len: int, shardings=None):
     """Forward over a prompt, building the cache.  Returns (last_logits
-    (B,1,Vp), cache, cur_len = T)."""
-    x = _embed_inputs(cfg, params, batch)
-    B, T, _ = x.shape
-    cos, sin = _rope(cfg, _positions(cfg, batch, T))
-    cache = init_cache(cfg, B, max_len, device=x.device)
-    for g in range(cfg.num_groups):
-        for spec, p, c in zip(cfg.group, params["blocks"], cache):
-            x, nc, _ = _block_apply(cfg, spec, _slot(p, g), x, cos, sin)
-            if spec.kind == "attn":
-                c["k"][g, :, :T] = nc[0]
-                c["v"][g, :, :T] = nc[1]
-            else:
-                for name, t in nc.items():
-                    c[name][g] = t
-    logits = _logits(cfg, params, x[:, -1:])
+    (B,1,Vp), cache, cur_len = T).  Under ``shardings`` the cache is made
+    of DTensors laid out by :func:`cache_specs`."""
+    with sharded_context(shardings):
+        x = _embed_inputs(cfg, params, batch)
+        B, T, _ = x.shape
+        cos, sin = _rope(cfg, _positions(cfg, batch, T))
+        x = _wsc(x, shardings, "acts")
+        cache = init_cache(cfg, B, max_len, device=x.device,
+                           policy=_policy(shardings))
+        for g in range(cfg.num_groups):
+            for spec, p, c in zip(cfg.group, params["blocks"], cache):
+                x, nc, _ = _block_apply(cfg, spec, _slot(p, g), x, cos, sin,
+                                        shardings=shardings)
+                if spec.kind == "attn":
+                    _write(c["k"][g], 0, nc[0])
+                    _write(c["v"][g], 0, nc[1])
+                else:
+                    for name, t in nc.items():
+                        _assign(c[name][g], t)
+            x = _wsc(x, shardings, "acts")
+        logits = _logits(cfg, params, x[:, -1:], shardings)
     return logits, cache, T
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, cur_len: int):
+def decode_step(cfg: ModelConfig, params, cache, tokens, cur_len: int,
+                shardings=None):
     """One decode step.  tokens: (B, 1) int; cur_len: length *including*
     the new token.  Returns (logits (B,1,Vp), cache), the cache updated in
     place."""
-    x = _embed_inputs(cfg, params, {"tokens": tokens})
-    B = x.shape[0]
-    pos = torch.full((B, 1), cur_len - 1, dtype=torch.int64,
-                     device=x.device)
-    if cfg.rope_kind == "mrope":
-        pos = pos[..., None].expand(B, 1, 3)
-    cos, sin = _rope(cfg, pos)
-    for g in range(cfg.num_groups):
-        for spec, p, c in zip(cfg.group, params["blocks"], cache):
-            x, _, _ = _block_apply(cfg, spec, _slot(p, g), x, cos, sin,
-                                   cache=_slot(c, g), cur_len=cur_len)
-    return _logits(cfg, params, x), cache
+    with sharded_context(shardings):
+        x = _embed_inputs(cfg, params, {"tokens": tokens})
+        B = x.shape[0]
+        pos = torch.full((B, 1), cur_len - 1, dtype=torch.int64,
+                         device=x.device)
+        if cfg.rope_kind == "mrope":
+            pos = pos[..., None].expand(B, 1, 3)
+        cos, sin = _rope(cfg, pos)
+        for g in range(cfg.num_groups):
+            for spec, p, c in zip(cfg.group, params["blocks"], cache):
+                x, _, _ = _block_apply(cfg, spec, _slot(p, g), x, cos, sin,
+                                       cache=_slot(c, g), cur_len=cur_len,
+                                       shardings=shardings)
+        return _logits(cfg, params, x, shardings), cache

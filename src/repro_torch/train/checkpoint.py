@@ -15,7 +15,17 @@ between the packages in both directions:
     background thread writes them.
 
 ``restore`` writes into the tensors of ``like`` in place, on their
-devices; its ``shardings=`` placement belongs to the multi-card slice.
+devices.
+
+Sharded trees (DTensor leaves): ``save`` gathers each leaf
+(``full_tensor()``, on every rank), rank 0 writes, and the others wait
+at a barrier; the format is unchanged, so either package restores the
+other's checkpoints.  ``restore`` into DTensor leaves keeps each rank's
+slice of the stored leaf, whatever layout saved it; ``restore(...,
+shardings=)`` (a tree of :class:`repro_torch.models.sharding.Sharding`
+matching ``like``) instead returns new DTensor leaves laid out so: the
+elastic resharding path onto a mesh from
+:func:`repro_torch.launch.elastic.build_mesh`.
 """
 
 from __future__ import annotations
@@ -29,8 +39,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.tree import leaves_with_paths
+from repro_torch.train.tree import leaves_with_paths, subtree, unflatten
 
 PyTree = Any
 _MANIFEST = "manifest.json"
@@ -60,15 +71,43 @@ def _from_file(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 def save(ckpt_dir: str, step: int, tree: PyTree, *,
          extra: Optional[dict] = None, keep_last: int = 3,
          async_write: bool = False):
     """Save a checkpoint.  Returns the final directory path (or the
-    writing thread)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    host = [(_name(path), _dtype_name(t), _to_host(t))
-            for path, t in leaves_with_paths(tree)]
+    writing thread).  In a world of several ranks every rank calls it:
+    DTensor leaves are gathered one at a time, rank 0 writes (at once,
+    not in a thread) and the others return None after the barrier."""
+    writer = not _multi_rank() or dist.get_rank() == 0
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    host = []
+    for path, t in leaves_with_paths(tree):
+        full = t.full_tensor() if _is_dt(t) else t
+        if writer:
+            host.append((_name(path), _dtype_name(full), _to_host(full)))
+        del full
+    if _multi_rank():
+        final = _save_host(ckpt_dir, step, host, extra, keep_last,
+                           False) if writer else None
+        dist.barrier()
+        return final
+    return _save_host(ckpt_dir, step, host, extra, keep_last, async_write)
 
+
+def _save_host(ckpt_dir: str, step: int, host: list, extra, keep_last: int,
+               async_write: bool):
+    """Write (name, dtype, array) leaves as one committed checkpoint."""
     def _write():
         tmp = os.path.join(ckpt_dir, f"tmp.{step}.{os.getpid()}")
         final = os.path.join(ckpt_dir, f"step_{step:010d}")
@@ -116,11 +155,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, like: PyTree, *, step: Optional[int] = None):
+def restore(ckpt_dir: str, like: PyTree, *, step: Optional[int] = None,
+            shardings: Optional[PyTree] = None):
     """Restore into the tensors of ``like`` (a Model, or a tree of
-    tensors such as ``(params, opt_state)``), in place.  Every leaf's
-    shape and dtype is checked against the manifest before any is
-    written (ValueError).  Returns (like, step, extra)."""
+    tensors such as ``(params, opt_state)``), in place; a DTensor leaf
+    takes its own slice of the stored leaf.  With ``shardings`` (a tree
+    of :class:`repro_torch.models.sharding.Sharding` shaped as ``like``)
+    each leaf is instead laid out anew (``distribute_tensor``; every rank
+    reads the file and keeps its slice) and the new tree is returned in
+    ``like``'s shape.  Every leaf's shape and dtype is checked against
+    the manifest before any is read (ValueError).  Returns (like or the
+    new tree, step, extra)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -140,7 +185,27 @@ def restore(ckpt_dir: str, like: PyTree, *, step: Optional[int] = None):
             raise ValueError(f"dtype mismatch for {name}: ckpt "
                              f"{meta['dtype']} vs {_dtype_name(ref)}")
         targets.append((ref, meta))
-    for ref, meta in targets:
+    from torch.distributed.tensor import distribute_tensor
+
+    placed = []
+    for (path, _), (ref, meta) in zip(leaves_with_paths(like), targets):
         arr = np.load(os.path.join(d, meta["file"]))
-        ref.copy_(_from_file(arr, meta["dtype"]))
+        t = _from_file(arr, meta["dtype"])
+        if shardings is not None:
+            sh = subtree(shardings, path)
+            dev = ref.device if ref.device.type == sh.mesh.device_type \
+                else torch.device(sh.mesh.device_type,
+                                  torch.cuda.current_device())
+            placed.append(distribute_tensor(t.to(dev), sh.mesh,
+                                            sh.placements,
+                                            src_data_rank=None))
+        elif _is_dt(ref):
+            mine = distribute_tensor(t.to(ref.device), ref.device_mesh,
+                                     ref.placements, src_data_rank=None)
+            ref.to_local().copy_(mine.to_local())
+        else:
+            ref.copy_(t)
+        del arr, t
+    if shardings is not None:
+        return unflatten(like, placed), step, manifest.get("extra", {})
     return like, step, manifest.get("extra", {})

@@ -3,11 +3,17 @@ gradient accumulation, and an optional HHE-encrypted data plane (batches
 arrive as Rubato/HERA ciphertext and are decrypted on the device by
 keystream subtraction, the paper's cipher fused into the input pipeline).
 
-The port's copy of `repro.train.train_loop` without its sharding: the
-reference's ``policy`` argument, ``batch_specs``/``act_shardings`` and the
-specs dict it returns belong to the multi-card slice.  The step updates
-the parameters and the optimizer state in place (the reference donates
-them).
+The port's copy of `repro.train.train_loop`.  The step updates the
+parameters and the optimizer state in place (the reference donates them).
+
+With a ``policy`` (:mod:`repro_torch.models.sharding`) the step is the
+reference's sharded one over ``torch.distributed``: every rank of the
+policy's mesh calls it with the same batch, the parameters and moments
+are DTensors laid out by ``param_specs``/``opt_state_specs``, each rank
+decrypts the whole batch and keeps its slice of it (``batch_specs``; no
+data moves, and the block counters are the batch's own), and the loss
+and gradients run on DTensors under ``act_shardings``.  ``policy=None``
+is the one-device step.
 """
 
 from __future__ import annotations
@@ -20,8 +26,51 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.train.optimizer import OptConfig, adamw_update
+from repro_torch.models.sharding import P
+from repro_torch.train.optimizer import (
+    OptConfig,
+    adamw_update,
+    opt_state_specs,
+)
 from repro_torch.train.tree import leaves, unflatten
+
+
+def batch_specs(cfg: ModelConfig, policy, *, train: bool = True) -> dict:
+    """The batch's specs (the reference's): tokens/labels over dp (or the
+    sequence over dp for a batch of 1), frontend embeddings and M-RoPE
+    positions likewise with a trailing whole dim."""
+    bs = tuple(policy.batch_spec())
+    d: dict = {}
+    if cfg.frontend == "none":
+        d["tokens"] = bs
+    else:
+        d["embeds"] = P(*bs, None)
+        if cfg.rope_kind == "mrope":
+            d["positions"] = P(*bs, None)
+    if train:
+        d["labels"] = bs
+    return d
+
+
+def act_shardings(cfg: ModelConfig, policy) -> dict:
+    """The activation specs a sharded pass redistributes to (the
+    reference's, as specs): layer-boundary activations over dp and the
+    model axes, logits over the vocab, attention heads on the tp sub-axes,
+    Mamba inner channels over the model axes; ``_policy`` carries the
+    policy into the layers (the MoE and attention bodies read its mesh).
+    The port's attention takes its 4-d (B, T, H, hd) form of "q" with the
+    sequence whole (:func:`repro_torch.models.model._attn_sharded`)."""
+    bs = tuple(policy.batch_spec())
+    b = bs[0] if not policy.seq_shard_data else None
+    t = bs[1]
+    return {
+        "acts": P(bs[0], bs[1], policy.tp_full),
+        "logits": P(bs[0], bs[1], policy.tp_full),
+        "q": P(b, t, "tp_a", "tp_b", None),
+        "kv": P(b, t, "tp_a", None),
+        "ssm_inner": P(b, t, policy.tp_full),
+        "_policy": policy,
+    }
 
 
 def _on_device(batch: dict, dev: torch.device) -> dict:
@@ -69,24 +118,58 @@ class TrainStep:
     dict as ``times`` fills it with the step's ``decrypt_ms``,
     ``fwd_bwd_ms``, ``adamw_ms`` and ``step_ms`` (CUDA events on the card)
     and waits for the step; ``last_batch`` is the plaintext batch the last
-    step trained on."""
+    step trained on.  With a policy, ``specs`` holds the reference's
+    ``{"params", "opt", "batch"}`` specs (else None)."""
 
     def __init__(self, cfg: ModelConfig, opt: OptConfig, microbatch: int,
-                 decryptor, device: torch.device):
+                 decryptor, device: torch.device, policy=None):
         self.cfg = cfg
         self.opt = opt
         self.microbatch = microbatch
         self.decryptor = decryptor
         self.device = device
+        self.policy = policy
         self.last_batch: Optional[dict] = None
+        self.acts = self.specs = None
+        if policy is not None:
+            self.acts = act_shardings(cfg, policy)
+            pspecs = M.param_specs(cfg, policy)
+            bspecs = ({"ct": policy.batch_spec(), "base_ctr": ()}
+                      if decryptor is not None
+                      else batch_specs(cfg, policy, train=True))
+            self.specs = {"params": pspecs,
+                          "opt": opt_state_specs(pspecs, M.param_defs(cfg),
+                                                 opt),
+                          "batch": bspecs}
+            self._plain_specs = batch_specs(cfg, policy, train=True)
+
+    def _place(self, batch: dict) -> dict:
+        """Each rank's slice of the (same) batch every rank holds."""
+        if self.policy is None:
+            return batch
+        return {k: M.place(v, self.policy, self._plain_specs[k],
+                           src_data_rank=None) for k, v in batch.items()}
 
     def _loss_and_grads(self, params, flat, batch):
-        loss, _ = M.loss_fn(self.cfg, params, batch)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        loss, _ = M.loss_fn(self.cfg, params, self._place(batch),
+                            shardings=self.acts)
+        with M.sharded_context(self.acts):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
         # a leaf the loss never reads (an encoder's text embedding) has a
-        # zero gradient, as jax.grad gives it
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for g, p in zip(grads, flat)]
+        # zero gradient, as jax.grad gives it; a DTensor gradient is laid
+        # out as its parameter
+        out = []
+        for g, p in zip(grads, flat):
+            if g is None:
+                g = torch.zeros_like(p)
+            elif (self.policy is not None
+                  and tuple(g.placements) != tuple(p.placements)):
+                g = g.redistribute(p.device_mesh, p.placements)
+            out.append(g)
+        loss = loss.detach()
+        if self.policy is not None:
+            loss = loss.full_tensor()
+        return loss, out
 
     def __call__(self, params, opt_state, batch, step_idx,
                  times: Optional[dict] = None):
@@ -107,8 +190,7 @@ class TrainStep:
             # accumulate in bf16 for bf16 masters, else in float32
             acc_dt = (torch.bfloat16 if self.cfg.param_dtype == "bfloat16"
                       else torch.float32)
-            gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                    for p in flat]
+            gsum = [torch.zeros_like(p, dtype=acc_dt) for p in flat]
             lsum = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(m):
                 loss, grads = self._loss_and_grads(
@@ -135,9 +217,11 @@ class TrainStep:
 
 
 def make_train_step(cfg: ModelConfig, opt: OptConfig, *, microbatch: int = 1,
-                    decryptor=None, device=None) -> TrainStep:
+                    decryptor=None, device=None, policy=None) -> TrainStep:
     """The train step on ``device`` (default: the card; raises without one
     unless ``device="cpu"``).  If ``decryptor`` is given (see
     ``data/encrypted.py``), the batch carries ciphertext and block
-    counters and is decrypted on the device first."""
-    return TrainStep(cfg, opt, microbatch, decryptor, resolve_device(device))
+    counters and is decrypted on the device first.  ``policy`` makes it
+    the sharded step over the policy's mesh (see the module's note)."""
+    return TrainStep(cfg, opt, microbatch, decryptor, resolve_device(device),
+                     policy)

@@ -719,3 +719,92 @@ def test_card_train_run_decrypts_the_plain_encrypt_exactly(cuda):
 
     train.run(cfg, args, observe=observe)
     assert seen == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# the sharded path (chip_smoke.py phase 13, at smoke size): a world of one
+# rank on NCCL, the reference's (1, 1) host mesh, in this process
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def host_mesh(cuda):
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    init_distributed(cuda, verbose=False)
+    return make_host_mesh(device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-8b", "jamba-1.5-large",
+                                  "mamba2-2.7b", "mixtral-8x7b"])
+def test_card_sharded_serve_steps_match_the_cpu_in_float32(cuda, no_tf32,
+                                                           host_mesh, arch):
+    """The policy-taking prefill and decode steps (DTensor weights and
+    cache, FSDP forced on so the MoE body all-gathers) against the
+    one-device steps on the CPU: within 1e-4 absolute, as phase 11's."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_reference, params_to_numpy
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    tree = params_to_numpy(M.init_params(cfg, seed=5, device="cpu"))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 19))
+    runs = []
+    for dev, pol in (("cpu", None),
+                     (cuda, make_policy(host_mesh, cfg, batch=2, train=False,
+                                        hbm_bytes=1.0))):
+        model = params_from_reference(cfg, tree, device=dev, policy=pol)
+        pre = make_prefill_step(cfg, 19, device=dev, policy=pol)
+        dec = make_decode_step(cfg, device=dev, policy=pol)
+        lg, cache, cur = pre(model, {"tokens": toks[:, :16]})
+        out = [lg]
+        for i in range(3):
+            cur += 1
+            lg, cache = dec(model, cache, toks[:, 16 + i:17 + i], cur)
+            out.append(lg)
+        runs.append([o.full_tensor().cpu() if hasattr(o, "full_tensor")
+                     else o for o in out])
+    for g, w in zip(runs[1], runs[0]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-8b", "mixtral-8x7b"])
+def test_card_sharded_train_step_matches_the_cpu_in_float32(cuda, no_tf32,
+                                                            host_mesh, arch):
+    """Two AdamW steps with a policy (FSDP and 8-bit moments on) against
+    the one-device step on the CPU: loss and grad_norm within 1e-4
+    relative, as phase 12's."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_reference, params_to_numpy
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              opt_8bit=True)
+    opt = OptConfig(lr=1e-3, eightbit=True, warmup_steps=1, total_steps=10)
+    tree = params_to_numpy(M.init_params(cfg, seed=9, device="cpu"))
+    runs = []
+    for dev, pol in (("cpu", None),
+                     (cuda, make_policy(host_mesh, cfg, batch=2, train=True,
+                                        hbm_bytes=1.0))):
+        model = params_from_reference(cfg, tree, device=dev,
+                                      policy=pol).requires_grad_()
+        state = init_opt_state(model, opt)
+        step = make_train_step(cfg, opt, device=dev, policy=pol,
+                               microbatch=2)
+        metrics = []
+        for i in range(2):
+            model, state, m = step(model, state, _train_batch(cfg, i), i)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs.append(metrics)
+    for (l0, g0), (l1, g1) in zip(*runs):
+        assert abs(l1 - l0) <= 1e-4 * abs(l0)
+        assert abs(g1 - g0) <= 1e-4 * abs(g0)

@@ -34,9 +34,17 @@ from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.serve import EncryptedChannel  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.elastic import build_mesh, plan_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    init_distributed,
+    make_host_mesh,
+    make_production_mesh,
+    rank_device,
+)
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.model import init_cache, init_params  # noqa: E402
+from repro_torch.models.sharding import make_policy  # noqa: E402
 from repro_torch.serve.serve_loop import (  # noqa: E402
     make_decode_step,
     make_prefill_step,
@@ -73,7 +81,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.launch.elastic", "repro_torch.launch.train",
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.train_loop", "repro_torch.train.checkpoint",
-            "repro_torch.train.tree"} <= set(mods)
+            "repro_torch.train.tree", "repro_torch.launch.mesh",
+            "repro_torch.models.sharding",
+            "repro_torch.train.compression"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -116,6 +126,13 @@ def test_no_port_example_imports_jax_or_the_reference(name):
     _assert_no_jax_or_reference(PKG.parents[1] / "examples" / name)
 
 
+#: a policy from axis sizes alone (no ranks): the factories taking one
+#: must still raise without a card before they use it
+_POLICY = make_policy({"data": 1, "model": 1},
+                      get_config("granite-3-8b", smoke=True), batch=1,
+                      train=True, hbm_bytes=16e9)
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -155,6 +172,22 @@ def no_cuda(monkeypatch):
                             OptConfig()),
     lambda: train_main(["--arch", "granite-3-8b", "--smoke", "--steps",
                         "1"]),
+    lambda: make_production_mesh(),
+    lambda: make_production_mesh(multi_pod=True),
+    lambda: make_host_mesh(),
+    lambda: init_distributed(),
+    lambda: rank_device(),
+    lambda: build_mesh(plan_mesh(1, model=1)),
+    lambda: make_prefill_step(get_config("granite-3-8b", smoke=True), 8,
+                              policy=_POLICY),
+    lambda: make_decode_step(get_config("granite-3-8b", smoke=True),
+                             policy=_POLICY),
+    lambda: make_train_step(get_config("granite-3-8b", smoke=True),
+                            OptConfig(), policy=_POLICY),
+    lambda: serve_main(["--arch", "granite-3-8b", "--smoke",
+                        "--production-mesh"]),
+    lambda: train_main(["--arch", "granite-3-8b", "--smoke", "--steps",
+                        "1", "--production-mesh"]),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
         "ServeClient", "default", "cuda", "autotune", "measure_plan",
@@ -162,7 +195,12 @@ def no_cuda(monkeypatch):
         "MachineModel", "aes_ctr_keystream", "sharded_engine",
         "init_params", "init_cache", "params_from_reference",
         "make_prefill_step", "make_decode_step", "EncryptedChannel",
-        "serve_main", "make_train_step", "train_main"])
+        "serve_main", "make_train_step", "train_main",
+        "make_production_mesh", "make_production_mesh_multi_pod",
+        "make_host_mesh", "init_distributed", "rank_device", "build_mesh",
+        "make_prefill_step_policy", "make_decode_step_policy",
+        "make_train_step_policy", "serve_main_production_mesh",
+        "train_main_production_mesh"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

@@ -136,6 +136,18 @@ Phases (any failure exits non-zero; nothing is caught):
    ``compressed_pod_reduce`` on a (2, 1, 2) pod mesh, exact against its
    formula: on NCCL on a machine with 4 cards, and on gloo over the one
    card where the probe passes (train at 2 layers).
+14. The dry run and the roofline (``repro_torch.launch.dryrun``,
+   ``roofline``): granite-3-8b at its full config traced by
+   ``dryrun.run_cell`` on fake worlds (``"fake"`` process groups, fake
+   tensors on the card, the policy made for the card's memory), each cell
+   in a child process of its own, all at once: train_4k, prefill_32k and
+   decode_32k on the 1-pod mesh of 256 ranks, decode_32k on the 2-pod
+   mesh of 512; every cell ok, no byte allocated on the card, no kernel
+   launched, each record's FLOPs, bytes, collectives and peak a rank
+   printed.  Then the work of phase 11b's decode step and phase 12's train
+   step, counted in one fake pass each on one rank, held against the
+   times those phases measured: the measured step is no shorter than the
+   roofline's compute term (989 TFLOP/s); the bytes term is printed.
 
 The tuner's cache is a fresh file in a temporary directory for the whole
 run, so no cache left on the machine steers any phase.
@@ -169,8 +181,8 @@ SERVE_PRESETS = (("hera-128a", 1), ("rubato-128l", 1), ("pasta-128l", 2))
 
 CHECK_LANE_COUNTS = (1, 31, 1000, 4096)  # cut a lane group / thread block
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
+# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit); the
+# HBM and dense bf16 rates are the port's roofline's (:func:`peak_rates`).
 # 32-bit integer instructions: 132 SMs x 64 INT32 lanes x ~1.98 GHz.  (The
 # 67 TFLOP/s FP32 figure counts an FMA as two operations, so half of it
 # would overstate the integer rate twofold.)
@@ -340,12 +352,20 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
+def peak_rates() -> tuple:
+    """The H100's HBM bytes/s and dense bf16 FLOP/s, read from
+    ``repro_torch.launch.roofline`` (one copy of each)."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
+    return HBM_BW, PEAK_FLOPS
+
+
 def bound(nbytes: float, ops: float, lookups: float = 0.0):
     """Least ms for the work, the contract's ``bound_by`` ("bytes" or
     "operations") and the limit that sets it: the bytes over the HBM rate,
     the INT32 instructions over their issue rate, or the shared-memory
     lookups over the shared-memory rate (operations on their own pipe)."""
-    times = {"HBM bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+    times = {"HBM bytes": nbytes / peak_rates()[0] * 1e3,
              "INT32 instructions": ops / INT_OPS_PER_S * 1e3,
              "shared-memory lookups": lookups / SMEM_WORDS_PER_S * 1e3}
     limit = max(times, key=times.get)
@@ -1825,7 +1845,7 @@ def llm_config(arch: str, **changes):
 def decode_bound_ms(weight_bytes: int, cache_bytes: int) -> float:
     """Least ms of one decode step: every serving weight and the whole KV
     cache read once over the HBM rate."""
-    return (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    return (weight_bytes + cache_bytes) / peak_rates()[0] * 1e3
 
 
 def fresh_memory() -> None:
@@ -2194,7 +2214,6 @@ TRAIN_LAYERS = 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4     # step 0 is warm-up
 TRAIN_CIPHER = "rubato-128l"
 TRAIN_PATH = ("keystream", "aes_xof")
-BF16_DENSE_FLOPS = 989e12      # H100 SXM data sheet, dense bf16
 CE_TOL = 1e-4                  # chunked against unchunked CE, float32
 RESUME_TOL = 1e-3   # resumed step against an uninterrupted one: the
 # embedding backward accumulates with atomics, so two runs differ slightly
@@ -2320,7 +2339,7 @@ def llm_train_phase(dev) -> tuple:
            "loop_s": loop_s, "step_kernels": kernels,
            "tokens_per_s": tokens / loop_s,
            "model_flops": flops,
-           "model_flop_share": flops / loop_s / BF16_DENSE_FLOPS,
+           "model_flop_share": flops / loop_s / peak_rates()[1],
            "peak_gb": peak, "chunked_ce_gap": ce_gap,
            "launches": {k: counts[k] for k in SOURCES}}
     del r, params, probes, enc
@@ -3077,6 +3096,181 @@ def _log_world(w: dict, note: str = "") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the dry run and the roofline
+# ---------------------------------------------------------------------------
+# granite-3-8b's cells traced at full config on fake worlds, each in a
+# child process of its own (one world a process): every applicable shape
+# on the 1-pod mesh (256 ranks) and decode_32k on the 2-pod mesh (512)
+DRYRUN_CELLS = (("single", "train_4k"), ("single", "prefill_32k"),
+                ("single", "decode_32k"), ("multi", "decode_32k"))
+# what a child may hold on the card: fake tensors allocate nothing
+DRYRUN_MAX_ALLOCATED = 1 << 20
+
+
+def dryrun_child(spec_path: str) -> int:
+    """One cell of phase 14a: ``launch.dryrun.run_cell`` on a fake world
+    of 256 or 512 ranks, fake tensors on the card, the policy made for the
+    card's memory; writes the record, the card's peak allocation and the
+    kernel launches of this process."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    multi = spec["mesh"] == "multi"
+    tag = D.MESHES[spec["mesh"]][0]
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    D.start_fake_world(512 if multi else 256)
+    mesh = make_production_mesh(multi_pod=multi)
+    rec = D.run_cell(LLM_ARCH, spec["shape"], mesh, tag,
+                     hbm_bytes=spec["hbm_bytes"])
+    torch.cuda.synchronize()
+    Path(spec["out"]).write_text(json.dumps({
+        "rec": rec, "max_allocated": torch.cuda.max_memory_allocated(),
+        "launches": dict(build.LAUNCHES)}))
+    return 0
+
+
+def dryrun_cells(hbm_bytes: float, timeout: float = 600) -> list:
+    """14a: the DRYRUN_CELLS children, started together."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    try:
+        procs = []
+        for i, (mesh, shape) in enumerate(DRYRUN_CELLS):
+            spec = tmp / f"spec{i}.json"
+            spec.write_text(json.dumps({
+                "mesh": mesh, "shape": shape, "hbm_bytes": hbm_bytes,
+                "out": str(tmp / f"out{i}.json")}))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--dryrun-child", str(spec)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for i, p in enumerate(procs):
+            try:
+                tail = p.communicate(timeout=timeout)[0][-3000:]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                tail = p.communicate()[0][-3000:]
+            check(p.returncode == 0, f"phase 14 dry run {DRYRUN_CELLS[i]}: "
+                  f"exit code {p.returncode}:\n{tail}")
+            outs.append(json.loads((tmp / f"out{i}.json").read_text()))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _roofline_row(costs: dict, measured_ms: float, model_flops: float):
+    from repro_torch.launch.roofline import roofline_terms
+
+    t = roofline_terms(costs["flops"], costs["bytes"],
+                       costs["collective_bytes"])
+    return {"flops": costs["flops"], "bytes": costs["bytes"],
+            "peak_gb": costs["peak_bytes_per_dev"] / 1e9, **t,
+            "measured_ms": measured_ms,
+            "t_compute_ms": t["t_compute_s"] * 1e3,
+            "t_memory_ms": t["t_memory_s"] * 1e3,
+            "compute_share": t["t_compute_s"] * 1e3 / measured_ms,
+            "memory_share": t["t_memory_s"] * 1e3 / measured_ms,
+            "model_flops": model_flops,
+            "useful_ratio": model_flops / max(costs["flops"], 1.0)}
+
+
+def roofline_steps(dev, decode_ms: float, train_ms: float) -> dict:
+    """14b: the work of phase 11b's decode step (granite-3-8b full, bf16
+    serving weights, batch LLM_BATCH, a cache of LLM_PROMPT + LLM_GEN)
+    and phase 12's train step (TRAIN_LAYERS layers, TRAIN_BATCH x
+    TRAIN_SEQ, microbatch 1), counted in one fake pass each on one rank
+    (no process group: the unsharded steps those phases time), held
+    against the times those phases measured: CUDA-graph replay for decode,
+    CUDA events (decrypt + forward+backward + AdamW) for train.  The
+    measured step must not beat the compute term; the bytes term (every
+    op's operands and outputs) is printed, not held: the 50 MB L2 serves
+    some of it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import cells as C
+    from repro_torch.launch import dryrun as D
+
+    cfg = llm_config(LLM_ARCH, dtype="bfloat16")
+    shape = C.Shape("phase11b_decode", LLM_PROMPT + LLM_GEN, LLM_BATCH,
+                    "decode")
+    with FakeTensorMode():
+        fn, args, scalars = D.build_cell(cfg, shape, None, dev)
+        args[0].cast_for_serving()
+        decode = D.measure(fn, args, scalars)
+    tcfg = llm_config(LLM_ARCH, num_layers=TRAIN_LAYERS)
+    train, _ = D.trace_cell(tcfg, C.Shape("phase12_train", TRAIN_SEQ,
+                                          TRAIN_BATCH, "train"), None,
+                            device=dev, microbatch=1)
+    out = {"decode": _roofline_row(
+               decode, decode_ms, 2.0 * cfg.active_param_count() * LLM_BATCH),
+           "train": _roofline_row(
+               train, train_ms,
+               6.0 * tcfg.active_param_count() * TRAIN_BATCH * TRAIN_SEQ)}
+    for name, r in out.items():
+        check(r["measured_ms"] >= r["t_compute_ms"],
+              f"phase 14 {name}: measured {r['measured_ms']:.3f} ms beats "
+              f"the compute term {r['t_compute_ms']:.3f} ms")
+    return out
+
+
+def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
+    """Phase 14: 14a (the dry run) and 14b (the roofline against the
+    card's steps); the kernel launches counted around the phase are 0."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    hbm = float(torch.cuda.get_device_properties(0).total_memory)
+    build.reset_launches()                        # the phase starts
+    cells = dryrun_cells(hbm)
+    steps = roofline_steps(dev, decode_ms, train_ms)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)               # the phase ends
+    out = {"hbm_bytes": hbm, "cells": [], "launches": launches,
+           "roofline": steps}
+    check(all(v == 0 for v in launches.values()),
+          f"phase 14 launched kernels: {launches}")
+    for (mesh, shape), c in zip(DRYRUN_CELLS, cells):
+        rec = c["rec"]
+        check(rec["ok"], f"phase 14 {LLM_ARCH} {shape} {mesh}: "
+              f"{rec.get('error')}\n{rec.get('trace', '')}")
+        check(c["max_allocated"] <= DRYRUN_MAX_ALLOCATED,
+              f"phase 14 {shape} {mesh}: {c['max_allocated']} bytes "
+              "allocated on the card")
+        check(all(v == 0 for v in c["launches"].values()),
+              f"phase 14 {shape} {mesh}: launches {c['launches']}")
+        rec.pop("trace", None)
+        out["cells"].append({**rec, "max_allocated": c["max_allocated"],
+                             "launches": c["launches"]})
+        log(f"  {LLM_ARCH} {shape} {rec['mesh']}: ok, traced in "
+            f"{rec['trace_s']:.1f} s; a rank: {rec['flops']:.4g} FLOPs, "
+            f"{rec['bytes']:.4g} bytes, collectives "
+            f"{json.dumps(rec['collective_bytes_by_kind'])} bytes "
+            f"({json.dumps(rec['collective_counts'])}), peak "
+            f"{rec['peak_bytes_per_dev'] / 1e9:.2f} GB of "
+            f"{hbm / 1e9:.2f}; tp {rec['tp']} fsdp {rec['fsdp']}; card "
+            f"allocated {c['max_allocated']} bytes")
+    for name, r in steps.items():
+        log(f"  roofline {name}: measured {r['measured_ms']:.3f} ms; "
+            f"T_comp {r['t_compute_ms']:.3f} ms ({r['compute_share']:.4f} "
+            f"of it), T_mem {r['t_memory_ms']:.3f} ms "
+            f"({r['memory_share']:.4f}), T_coll "
+            f"{r['t_collective_s'] * 1e3:.3f} ms; {r['flops']:.4g} FLOPs, "
+            f"{r['bytes']:.4g} bytes, peak {r['peak_gb']:.2f} GB; "
+            f"dominant {r['dominant']}; useful {r['useful_ratio']:.4f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: times at the serving shapes
 # ---------------------------------------------------------------------------
 def timing_inputs(dev, name: str, index: int):
@@ -3399,6 +3593,7 @@ def main(argv) -> int:
     ap.add_argument("--tcp-client", nargs=4, help=argparse.SUPPRESS)
     ap.add_argument("--gloo-probe-child", nargs=5, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", help=argparse.SUPPRESS)
     # phase 13 alone (after the build and phase 11a, whose logits it is
     # held to); on a machine with 4 cards, its world of 4 on NCCL alone.
     # Prints no kernel line
@@ -3421,6 +3616,8 @@ def main(argv) -> int:
         return gloo_probe_child(name, int(r), int(w), store, out)
     if args.sharded_child is not None:
         return sharded_child(args.sharded_child)
+    if args.dryrun_child is not None:
+        return dryrun_child(args.dryrun_child)
     if args.only_sharded:
         return run_sharded_only()
     # the tuner's cache: a fresh file for this run only, so no cache left
@@ -3627,6 +3824,17 @@ def run(args, cache: Path) -> int:
     shutil.rmtree(ref_logits.parent, ignore_errors=True)
     log(json.dumps({"sharded_llm": sharded}))
     phases["sharded_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    log(f"[14] the dry run and the roofline: {LLM_ARCH} at full config "
+        f"traced on fake worlds of 256 and 512 ranks (child processes), "
+        f"and the roofline of phase 11b's decode and phase 12's train step "
+        f"against their measured times | {smi}")
+    dry = dryrun_phase(
+        dev, llm["teacher"][LLM_ARCH]["bfloat16"]["decode_graph_ms"],
+        train["llm_train"]["steady_median"]["step_ms"])
+    log(json.dumps({"dryrun": dry}))
+    phases["dryrun_s"] = time.perf_counter() - t
     phases["total_s"] = time.perf_counter() - t_all
     phases["peak_mem_gb"] = max(peak, llm["peak_gb"],
                                 train["llm_train"]["peak_gb"],

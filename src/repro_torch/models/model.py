@@ -307,10 +307,21 @@ def place(t: torch.Tensor, policy, spec, src_data_rank: Optional[int] = 0):
     """``t`` as a DTensor on the policy's mesh with ``spec``'s placements.
     ``src_data_rank=0`` scatters rank 0's tensor (the others pass one of
     the same shape); ``None`` keeps each rank's own slice of its own
-    ``t`` and moves nothing, and no more than the shard is kept."""
+    ``t`` and moves nothing, and no more than the shard is kept.  A
+    DTensor ``t`` already laid out so on the policy's mesh is returned as
+    it is (``launch.dryrun`` places a step's inputs before the step, as
+    the reference's ``in_shardings`` do); one laid out otherwise raises,
+    as ``distribute_tensor`` does."""
     from torch.distributed.tensor import distribute_tensor
 
     pl = policy.placements(spec)
+    if isinstance(t, DTensor):
+        if t.device_mesh != policy.mesh or tuple(t.placements) != pl:
+            raise ValueError(
+                f"a DTensor laid out {tuple(t.placements)} on "
+                f"{t.device_mesh} where the spec {spec} wants {pl} on "
+                f"{policy.mesh}")
+        return t
     out = distribute_tensor(t, policy.mesh, pl, src_data_rank=src_data_rank)
     loc = out.to_local()
     if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
@@ -382,16 +393,71 @@ def sharded_context(shardings):
 
 def _wsc(x, shardings, name):
     """The reference's ``with_sharding_constraint``: a DTensor is
-    redistributed to the placements of the spec named ``name``; anything
-    else is returned as it is."""
+    redistributed to the placements of the spec named ``name``, and so is
+    its gradient (:class:`_Constrained`); anything else is returned as it
+    is."""
     if not isinstance(x, DTensor) or shardings is None:
         return x
     spec = shardings.get(name)
     if spec is None:
         return x
     pl = shardings["_policy"].placements(spec)
-    return x if tuple(x.placements) == pl else x.redistribute(
+    y = x if tuple(x.placements) == pl else x.redistribute(
         x.device_mesh, pl)
+    if y.requires_grad and torch.is_grad_enabled():
+        y = _Constrained.apply(y, pl)
+    return y
+
+
+class _Constrained(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is redistributed to
+    ``pl``: ``with_sharding_constraint`` constrains the cotangent as it
+    constrains the value.  Left to DTensor, a gradient keeps whatever
+    layout the ops after the constraint gave it (the Mamba2 gate's
+    gradient arrived with its channels whole, split over the tokens, and
+    the product for ``w_z``'s gradient ran whole on every model rank)."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.pl:
+            g = g.redistribute(g.device_mesh, ctx.pl)
+        return g, None
+
+
+def _rows(x, shardings):
+    """A normed input (B, T, D) laid out as "acts" but with D whole, as
+    GSPMD lays it out before a norm and the column-parallel projections
+    after it.  Left to DTensor, the norm's partial sums over a split D
+    are reduce-scattered onto the sequence, and every op after reshards
+    through strided layouts (whose redistribution DTensor plans by a
+    search that took minutes a layer at the production meshes)."""
+    spec = shardings.get("acts") if shardings else None
+    if spec is None:
+        return x
+    return _wsc(x, {"rows": P(*spec[:-1], None),
+                    "_policy": shardings["_policy"]}, "rows")
+
+
+def _gathered(w, shardings):
+    """An FSDP weight gathered over "data" for its use, as GSPMD gathers
+    it for a contraction over its split D.  Left to DTensor, the product
+    of tokens split over "data" and such a weight may come out with its
+    head dim split over more ranks than there are heads a rank, and the
+    view into heads fails."""
+    from torch.distributed.tensor import Replicate
+
+    policy = _policy(shardings)
+    if policy is None or not policy.fsdp or not isinstance(w, DTensor):
+        return w
+    pl = tuple(Replicate() if a == "data" else p
+               for a, p in zip(policy.mesh_axes, w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pl)
 
 
 def _replicated(t: DTensor) -> tuple:
@@ -444,16 +510,17 @@ def _write(dst, start: int, src):
         dst[:, start:start + src.shape[1]] = src
         return
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset,
-    )
+
+    from repro_torch.models.sharding import shard_extent
 
     mesh, pl = dst.device_mesh, dst.placements
     if isinstance(src, DTensor):     # dst's layout, with S whole
         src = src.redistribute(mesh, tuple(
             Replicate() if isinstance(p, Shard) and p.dim == 1 else p
             for p in pl)).to_local()
-    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    shape, off = shard_extent(
+        dst.shape, [mesh.size(i) for i in range(mesh.ndim)],
+        mesh.get_coordinate(), pl)
     lo = max(start, off[1])
     hi = min(start + src.shape[1], off[1] + shape[1])
     if lo < hi:
@@ -531,9 +598,10 @@ def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
     H, K = cfg.num_heads, cfg.kv_heads
     hd = cfg.resolved_head_dim
     G = H // K
-    q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dkh->btkh", x, p["wk"].to(dt))
-    v = torch.einsum("btd,dkh->btkh", x, p["wv"].to(dt))
+    wq, wk, wv = (_gathered(p[n], shardings) for n in ("wq", "wk", "wv"))
+    q = torch.einsum("btd,dnh->btnh", x, wq.to(dt))
+    k = torch.einsum("btd,dkh->btkh", x, wk.to(dt))
+    v = torch.einsum("btd,dkh->btkh", x, wv.to(dt))
     if cfg.rope_kind != "none":
         q = A.apply_rope(q, cos, sin)
         k = A.apply_rope(k, cos, sin)
@@ -702,7 +770,7 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
                  cache=None, cur_len=None, shardings=None):
     """One layer: (attn|mamba) + optional FFN, pre-norm residual.
     Returns (x, new_cache, aux)."""
-    h_in = rms_norm(x, p["norm"], cfg.norm_eps)
+    h_in = rms_norm(_rows(x, shardings), p["norm"], cfg.norm_eps)
     if spec.kind == "attn":
         mix, new_cache = _attn_apply(
             cfg, spec, p, h_in, cos, sin,
@@ -719,7 +787,7 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff > 0:
-        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        h2 = rms_norm(_rows(x, shardings), p["norm2"], cfg.norm_eps)
         y, aux = _ffn_apply(cfg, spec, p, h2, shardings=shardings)
         if cfg.sandwich_norm:
             y = rms_norm(y, p["post_norm2"], cfg.norm_eps)
@@ -729,7 +797,7 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
 
 def _logits(cfg: ModelConfig, params, x, shardings=None):
     dt = dtype_of(cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(_rows(x, shardings), params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x, params["embed"].to(dt))
     else:

@@ -26,6 +26,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 
 
+def expert_counts(ids, E: int):
+    """How many of ``ids`` (expert ids in [0, E)) name each expert:
+    ``bincount(minlength=E)``'s numbers with a static output shape, so a
+    traced pass over fake tensors (``launch.dryrun``) runs it too."""
+    ids = ids.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+
+
 def route(cfg: ModelConfig, xf, router_w):
     """Router and capacity positions.  xf: (N, D); router_w: (D, E).
 
@@ -83,7 +92,7 @@ def moe_ffn(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo):
         y = y + part * w
 
     # ---- load-balance aux loss (Switch): E * sum_e f_e * P_e ----
-    f = torch.bincount(e_slot.reshape(-1), minlength=E).float() / (N * k)
+    f = expert_counts(e_slot, E).float() / (N * k)
     aux = E * torch.sum(f * probs.mean(0))
 
     return y.reshape(B, T, D).to(x.dtype), aux
@@ -253,8 +262,7 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
             y = _AllReduce.apply(y, policy.group(a))
 
         # load-balance aux (local f/P are unbiased estimates; mean over dp)
-        f = torch.bincount(eidx.reshape(-1), minlength=E).float() / (
-            n_loc * k)
+        f = expert_counts(eidx, E).float() / (n_loc * k)
         aux = E * torch.sum(f * probs.mean(0))
         for a in mean_axes:
             aux = _AllReduce.apply(aux, policy.group(a)) / shape[a]

@@ -306,6 +306,29 @@ def placements(spec: Spec, mesh_dim_names: Sequence[str],
                  else Replicate() for n in mesh_dim_names)
 
 
+def shard_extent(shape: Sequence[int], mesh_sizes: Sequence[int],
+                 coord: Sequence[int], pls) -> Tuple[tuple, tuple]:
+    """(local shape, global offset) of the shard at mesh coordinate
+    ``coord`` of a tensor of ``shape`` laid out by ``pls`` (one placement
+    per mesh dim), in plain Python: each ``Shard(d)`` in mesh-dim order
+    splits what is left of dim d into ``torch.chunk``'s pieces (ceil-sized,
+    the last ones short or empty), as DTensor splits it.  Unlike torch's
+    ``compute_local_shape_and_global_offset`` it reads no tensor, so it
+    runs under fake tensors."""
+    from torch.distributed.tensor import Shard
+
+    local, off = list(shape), [0] * len(shape)
+    for size, c, p in zip(mesh_sizes, coord, pls):
+        if isinstance(p, Shard):
+            n = local[p.dim]
+            lo = min(c * -(-n // size), n)
+            local[p.dim] = min(lo + -(-n // size), n) - lo
+            off[p.dim] += lo
+    # an empty shard sits at the end of its dim, as torch places it
+    off = [shape[d] if local[d] == 0 else o for d, o in enumerate(off)]
+    return tuple(local), tuple(off)
+
+
 MeshLike = Union["torch.distributed.device_mesh.DeviceMesh",
                  Mapping[str, int], Sequence[Tuple[str, int]]]
 

@@ -86,10 +86,13 @@ def _interleaved(x, m: int):
 
 class _Marks:
     """Phase boundaries of one step: CUDA events on the card (read once
-    the step is done), the host clock on the CPU."""
+    the step is done), the host clock on the CPU and in a pass over fake
+    tensors (``launch.dryrun``), which runs nothing on the card."""
 
     def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
+        from torch._guards import detect_fake_mode
+
+        self.cuda = dev.type == "cuda" and detect_fake_mode() is None
         self.marks = []
         self.mark()
 

@@ -34,6 +34,7 @@ from repro_torch.data.encrypted import FarmEncryptedSource  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.serve import EncryptedChannel  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.dryrun import main as dryrun_main  # noqa: E402
 from repro_torch.launch.elastic import build_mesh, plan_mesh  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     init_distributed,
@@ -41,6 +42,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
     make_production_mesh,
     rank_device,
 )
+from repro_torch.launch.roofline import main as roofline_main  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.model import init_cache, init_params  # noqa: E402
@@ -83,13 +85,17 @@ def test_every_module_imports_without_jax():
             "repro_torch.train.train_loop", "repro_torch.train.checkpoint",
             "repro_torch.train.tree", "repro_torch.launch.mesh",
             "repro_torch.models.sharding",
-            "repro_torch.train.compression"} <= set(mods)
+            "repro_torch.train.compression", "repro_torch.launch.cells",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro',\n"
             "       'ml_dtypes') or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'an import started a world'\n"
             "print('ok', len(sys.modules))\n")
     src = str(PKG.parent)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -188,6 +194,10 @@ def no_cuda(monkeypatch):
                         "--production-mesh"]),
     lambda: train_main(["--arch", "granite-3-8b", "--smoke", "--steps",
                         "1", "--production-mesh"]),
+    lambda: dryrun_main(["--arch", "granite-3-8b", "--shape",
+                         "decode_32k"]),
+    lambda: roofline_main(["--arch", "granite-3-8b", "--shape",
+                           "decode_32k"]),
 ], ids=["CipherBatch", "make_cipher", "make_producer", "make_engine",
         "threefry_producer", "threefry_words", "TenantRegistry",
         "ServeClient", "default", "cuda", "autotune", "measure_plan",
@@ -200,7 +210,7 @@ def no_cuda(monkeypatch):
         "make_host_mesh", "init_distributed", "rank_device", "build_mesh",
         "make_prefill_step_policy", "make_decode_step_policy",
         "make_train_step_policy", "serve_main_production_mesh",
-        "train_main_production_mesh"])
+        "train_main_production_mesh", "dryrun_main", "roofline_main"])
 def test_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make()

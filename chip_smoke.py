@@ -144,7 +144,14 @@ Phases (any failure exits non-zero; nothing is caught):
    decode_32k on the 1-pod mesh of 256 ranks, decode_32k on the 2-pod
    mesh of 512; every cell ok, no byte allocated on the card, no kernel
    launched, each record's FLOPs, bytes, collectives and peak a rank
-   printed.  Then the work of phase 11b's decode step and phase 12's train
+   printed.  Beside them, the dense MLP's layout (``layers.
+   mlp_shardings``), a child a case: qwen2-vl-7b's 2-pod train split
+   (tp_a 4, sp 4) traced through the train step at smoke size and at full
+   width cut to one layer (the width at which torch 2.11 raised without
+   it), every MLP product on F/16 of its features; and arctic-480b's
+   stationary-weight prefill split (tp_a 8, sp 2) at smoke size, the
+   dense residual's down projection at its rank's share of the unsharded
+   one.  Then the work of phase 11b's decode step and phase 12's train
    step, counted in one fake pass each on one rank, held against the
    times those phases measured: the measured step is no shorter than the
    roofline's compute term (989 TFLOP/s); the bytes term is printed.
@@ -3105,6 +3112,122 @@ DRYRUN_CELLS = (("single", "train_4k"), ("single", "prefill_32k"),
                 ("single", "decode_32k"), ("multi", "decode_32k"))
 # what a child may hold on the card: fake tensors allocate nothing
 DRYRUN_MAX_ALLOCATED = 1 << 20
+# the dense MLP's layout, each case on a fake world of its own:
+# qwen2-vl-7b's 2-pod train split (tp_a 4, tp_b 1, sp 4) at smoke size
+# (12 query and 4 KV heads; F 176, so F/16 = 11 names no other dim) and
+# at full width cut to one layer, and arctic-480b's stationary-weight
+# prefill split (tp_a 8, sp 2; 8 query and 8 KV heads, 16 experts, F 224)
+LAYOUT_CASES = ("qwen2-vl-smoke", "qwen2-vl-full", "arctic-smoke")
+
+
+def layout_case(name: str):
+    """(config, mesh shape, mesh axes, shape, hbm_bytes) of a layout
+    case."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import cells as C
+
+    two_pod = ((2, 2, 16), ("pod", "data", "model"))
+    if name == "qwen2-vl-smoke":
+        cfg = dataclasses.replace(
+            get_config("qwen2-vl-7b", smoke=True), num_heads=12, kv_heads=4,
+            head_dim=8, mrope_sections=(2, 1, 1), d_ff=176)
+        return (cfg, *two_pod, C.Shape("train_smoke", 32, 32, "train"),
+                16e9)
+    if name == "qwen2-vl-full":
+        cfg = dataclasses.replace(get_config("qwen2-vl-7b"), num_layers=1)
+        return (cfg, (2, 16, 16), ("pod", "data", "model"),
+                C.SHAPES["train_4k"], 80e9)
+    cfg = dataclasses.replace(get_config("arctic-480b", smoke=True),
+                              num_heads=8, kv_heads=8, num_experts=16,
+                              d_ff=224)
+    return (cfg, (2, 16), ("data", "model"),
+            C.Shape("prefill_smoke", 64, 4, "prefill"), 1.0)
+
+
+def layout_child(spec_path: str) -> int:
+    """One layout case of phase 14a: the step traced on a fake world on
+    the card (and, for the prefill case, unsharded on one rank); writes
+    the policy, ``flops_by_op`` and the card's peak allocation."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    cfg, mesh_shape, axes, shape, hbm = layout_case(spec["case"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    D.start_fake_world(int(np.prod(mesh_shape)))
+    pol = D.cell_policy(cfg, shape, make_mesh(mesh_shape, axes), hbm)
+    out = {"case": spec["case"], "tp": [pol.tp_a, pol.tp_b, pol.sp],
+           "stationary": pol.weight_stationary, "d_ff": cfg.d_ff,
+           "d_model": cfg.d_model, "layers": cfg.num_layers,
+           "remat": cfg.remat}
+    t = time.perf_counter()
+    try:
+        out["ops"] = D.trace_step(cfg, shape, pol, dev)["flops_by_op"]
+        out["ok"] = True
+    except Exception as e:  # reported and failed by the phase
+        import traceback
+
+        out.update(ok=False, error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-3000:])
+    out["trace_s"] = time.perf_counter() - t
+    if out["ok"] and shape.kind == "prefill":
+        out["whole"] = D.trace_step(cfg, shape, None, dev)["flops_by_op"]
+    torch.cuda.synchronize()
+    out["max_allocated"] = torch.cuda.max_memory_allocated()
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def _op_dims(op: str) -> list:
+    """The operand dims of a ``flops_by_op`` key (``"bmm 1x64x96 @
+    1x96x11"``)."""
+    return [int(d) for t in op.split(" ", 1)[1].split(" @ ")
+            for d in t.split("x")]
+
+
+def layout_checks(c: dict) -> str:
+    """Phase 14's checks of one layout case; returns its log line.  qwen2-vl:
+    no product of the step names F, F/2, F/4 or F/8, and the products on
+    F/16 add up to the MLP's nine a layer and microbatch (eleven with
+    remat, whose recompute stops once the hidden is back: the two up
+    projections again), each 2·N·D·F/16 with N = 2 rows x the sequence.
+    arctic: the dense residual's down projection runs on the rank's
+    tokens (over "data") and F/16, 1/32 of the unsharded product."""
+    check(c["ok"], f"phase 14 layout {c['case']}: {c.get('error')}\n"
+          f"{c.get('trace', '')}")
+    check(c["max_allocated"] <= DRYRUN_MAX_ALLOCATED,
+          f"phase 14 layout {c['case']}: {c['max_allocated']} bytes "
+          "allocated on the card")
+    F, Dm, ops = c["d_ff"], c["d_model"], c["ops"]
+    if c["case"].startswith("qwen2-vl"):
+        check(c["tp"] == [4, 1, 4], f"phase 14 {c['case']}: tp {c['tp']}")
+        whole = [op for op in ops
+                 if {F, F // 2, F // 4, F // 8} & set(_op_dims(op))]
+        check(not whole, f"phase 14 {c['case']}: MLP products on more "
+              f"than F/16: {whole}")
+        seq = 32 if c["case"].endswith("smoke") else 4096
+        per = (11 if c["remat"] else 9) * 2 * 2 * seq * Dm * (F // 16)
+        mlp = sum(v for op, v in ops.items() if F // 16 in _op_dims(op))
+        want = per * c["layers"] * 4
+        check(mlp == want, f"phase 14 {c['case']}: MLP FLOPs {mlp} where "
+              f"its share is {want}")
+        return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
+                f"{c['tp']}; MLP {mlp:.4g} FLOPs a rank, every product on "
+                f"F/16 = {F // 16}")
+    n = 4 * 64
+    whole = c["whole"][f"bmm 1x{n}x{F} @ 1x{F}x{Dm}"]
+    key = f"bmm 1x{n // 2}x{F // 16} @ 1x{F // 16}x{Dm}"
+    check(c["tp"] == [8, 1, 2] and c["stationary"],
+          f"phase 14 {c['case']}: tp {c['tp']}")
+    check(ops.get(key) == whole / 32, f"phase 14 {c['case']}: the down "
+          f"projection {key} counts {ops.get(key)}, its share is "
+          f"{whole / 32}: {sorted(ops)}")
+    return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
+            f"{c['tp']} stationary; down projection {key} {whole / 32:.4g} "
+            "FLOPs = the unsharded one / 32")
 
 
 def dryrun_child(spec_path: str) -> int:
@@ -3134,19 +3257,23 @@ def dryrun_child(spec_path: str) -> int:
     return 0
 
 
-def dryrun_cells(hbm_bytes: float, timeout: float = 600) -> list:
-    """14a: the DRYRUN_CELLS children, started together."""
+def dryrun_cells(hbm_bytes: float, timeout: float = 600):
+    """14a: the DRYRUN_CELLS and LAYOUT_CASES children, started together;
+    returns (cells' results, layout cases' results)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    jobs = [("--dryrun-child", {"mesh": mesh, "shape": shape,
+                                "hbm_bytes": hbm_bytes})
+            for mesh, shape in DRYRUN_CELLS]
+    jobs += [("--layout-child", {"case": c}) for c in LAYOUT_CASES]
+    procs = []
     try:
-        procs = []
-        for i, (mesh, shape) in enumerate(DRYRUN_CELLS):
-            spec = tmp / f"spec{i}.json"
-            spec.write_text(json.dumps({
-                "mesh": mesh, "shape": shape, "hbm_bytes": hbm_bytes,
-                "out": str(tmp / f"out{i}.json")}))
+        for i, (flag, spec) in enumerate(jobs):
+            path = tmp / f"spec{i}.json"
+            path.write_text(json.dumps({**spec,
+                                        "out": str(tmp / f"out{i}.json")}))
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"),
-                 "--dryrun-child", str(spec)], stdout=subprocess.PIPE,
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                 str(path)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         outs = []
         for i, p in enumerate(procs):
@@ -3155,10 +3282,10 @@ def dryrun_cells(hbm_bytes: float, timeout: float = 600) -> list:
             except subprocess.TimeoutExpired:
                 p.kill()
                 tail = p.communicate()[0][-3000:]
-            check(p.returncode == 0, f"phase 14 dry run {DRYRUN_CELLS[i]}: "
-                  f"exit code {p.returncode}:\n{tail}")
+            check(p.returncode == 0, f"phase 14 {jobs[i]}: exit code "
+                  f"{p.returncode}:\n{tail}")
             outs.append(json.loads((tmp / f"out{i}.json").read_text()))
-        return outs
+        return outs[:len(DRYRUN_CELLS)], outs[len(DRYRUN_CELLS):]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3231,7 +3358,7 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
 
     hbm = float(torch.cuda.get_device_properties(0).total_memory)
     build.reset_launches()                        # the phase starts
-    cells = dryrun_cells(hbm)
+    cells, layouts = dryrun_cells(hbm)
     steps = roofline_steps(dev, decode_ms, train_ms)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)               # the phase ends
@@ -3259,6 +3386,11 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
             f"{rec['peak_bytes_per_dev'] / 1e9:.2f} GB of "
             f"{hbm / 1e9:.2f}; tp {rec['tp']} fsdp {rec['fsdp']}; card "
             f"allocated {c['max_allocated']} bytes")
+    out["layout"] = layouts
+    for c in layouts:
+        log("  layout " + layout_checks(c))
+        c.pop("whole", None)
+        c.pop("ops", None)
     for name, r in steps.items():
         log(f"  roofline {name}: measured {r['measured_ms']:.3f} ms; "
             f"T_comp {r['t_compute_ms']:.3f} ms ({r['compute_share']:.4f} "
@@ -3594,6 +3726,7 @@ def main(argv) -> int:
     ap.add_argument("--gloo-probe-child", nargs=5, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-child", help=argparse.SUPPRESS)
+    ap.add_argument("--layout-child", help=argparse.SUPPRESS)
     # phase 13 alone (after the build and phase 11a, whose logits it is
     # held to); on a machine with 4 cards, its world of 4 on NCCL alone.
     # Prints no kernel line
@@ -3618,6 +3751,8 @@ def main(argv) -> int:
         return sharded_child(args.sharded_child)
     if args.dryrun_child is not None:
         return dryrun_child(args.dryrun_child)
+    if args.layout_child is not None:
+        return layout_child(args.layout_child)
     if args.only_sharded:
         return run_sharded_only()
     # the tuner's cache: a fresh file for this run only, so no cache left

@@ -52,9 +52,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models.constrain import wsc as _wsc
 from repro_torch.models.layers import (
     dtype_of,
     gated_mlp,
+    mlp_down,
+    mlp_shardings,
     normal_init,
     pdtype_of,
     rms_norm,
@@ -391,44 +394,6 @@ def sharded_context(shardings):
     return implicit_replication()
 
 
-def _wsc(x, shardings, name):
-    """The reference's ``with_sharding_constraint``: a DTensor is
-    redistributed to the placements of the spec named ``name``, and so is
-    its gradient (:class:`_Constrained`); anything else is returned as it
-    is."""
-    if not isinstance(x, DTensor) or shardings is None:
-        return x
-    spec = shardings.get(name)
-    if spec is None:
-        return x
-    pl = shardings["_policy"].placements(spec)
-    y = x if tuple(x.placements) == pl else x.redistribute(
-        x.device_mesh, pl)
-    if y.requires_grad and torch.is_grad_enabled():
-        y = _Constrained.apply(y, pl)
-    return y
-
-
-class _Constrained(torch.autograd.Function):
-    """The identity on a DTensor, whose gradient is redistributed to
-    ``pl``: ``with_sharding_constraint`` constrains the cotangent as it
-    constrains the value.  Left to DTensor, a gradient keeps whatever
-    layout the ops after the constraint gave it (the Mamba2 gate's
-    gradient arrived with its channels whole, split over the tokens, and
-    the product for ``w_z``'s gradient ran whole on every model rank)."""
-
-    @staticmethod
-    def forward(ctx, x, pl):
-        ctx.pl = pl
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        if isinstance(g, DTensor) and tuple(g.placements) != ctx.pl:
-            g = g.redistribute(g.device_mesh, ctx.pl)
-        return g, None
-
-
 def _rows(x, shardings):
     """A normed input (B, T, D) laid out as "acts" but with D whole, as
     GSPMD lays it out before a norm and the column-parallel projections
@@ -743,7 +708,9 @@ def _mamba_apply(cfg: ModelConfig, p, x, cache=None, shardings=None):
 def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):
     """Dense or MoE FFN.  Returns (out, aux_loss).  Under a policy the MoE
     runs expert-parallel (:func:`repro_torch.models.moe.moe_ffn_sharded`),
-    as the reference's does."""
+    as the reference's does, and the dense MLP (the gated one, the dense
+    residual beside the MoE, the GELU one) is laid out by
+    :func:`repro_torch.models.layers.mlp_shardings`."""
     dt = dtype_of(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
@@ -754,15 +721,15 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):
                      p["e_wi_u"].to(dt), p["e_wo"].to(dt))
         if cfg.dense_residual:
             y = y + gated_mlp(x, p["wi_g"].to(dt), p["wi_u"].to(dt),
-                              p["wo_m"].to(dt))
+                              p["wo_m"].to(dt), shardings=shardings)
     elif cfg.mlp_gated:
         y = gated_mlp(x, p["wi_g"].to(dt), p["wi_u"].to(dt),
-                      p["wo_m"].to(dt))
+                      p["wo_m"].to(dt), shardings=shardings)
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(torch.einsum("...d,df->...f", x, p["wi_u"].to(dt)),
                    approximate="tanh")
-        y = torch.einsum("...f,fd->...d", h, p["wo_m"].to(dt))
+        y = mlp_down(h, p["wo_m"].to(dt), mlp_shardings(shardings))
     return y, aux
 
 

@@ -213,6 +213,10 @@ class ShardingPolicy:
         return (tuple(e_axes) or None), (tuple(rem) or None)
 
     # ---- activation specs --------------------------------------------------
+    def act(self, *dims) -> Spec:
+        """An activation's spec from its dims' entries (the reference's)."""
+        return P(*dims)
+
     def batch_spec(self) -> Spec:
         """(B, T, ...) activations: batch over dp (or seq over dp)."""
         if self.seq_shard_data:

@@ -16,9 +16,9 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-import repro.core  # noqa: E402
-import repro.crypto  # noqa: E402
-import repro.kernels  # noqa: E402
+import repro.core as ref_core_pkg  # noqa: E402
+import repro.crypto as ref_crypto_pkg  # noqa: E402
+import repro.kernels as ref_kernels_pkg  # noqa: E402
 from repro.core import rounds as ref_rounds  # noqa: E402
 from repro.core.cipher import make_cipher as ref_make_cipher  # noqa: E402
 from repro.core.hera import hera_stream_key as ref_hera  # noqa: E402
@@ -31,9 +31,9 @@ from repro.kernels.keystream.ops import (  # noqa: E402
     presto_keystream as ref_presto,
 )
 
-import repro_torch.core  # noqa: E402
-import repro_torch.crypto  # noqa: E402
-import repro_torch.kernels  # noqa: E402
+import repro_torch.core as core_pkg  # noqa: E402
+import repro_torch.crypto as crypto_pkg  # noqa: E402
+import repro_torch.kernels as kernels_pkg  # noqa: E402
 from repro_torch.core import rounds  # noqa: E402
 from repro_torch.core.cipher import make_cipher  # noqa: E402
 from repro_torch.core.hera import hera_stream_key  # noqa: E402
@@ -265,9 +265,9 @@ def test_presto_keystream_matches_reference(name):
 # package exports
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("ref_pkg,port_pkg", [
-    (repro.core, repro_torch.core),
-    (repro.crypto, repro_torch.crypto),
-    (repro.kernels, repro_torch.kernels),
+    (ref_core_pkg, core_pkg),
+    (ref_crypto_pkg, crypto_pkg),
+    (ref_kernels_pkg, kernels_pkg),
 ], ids=["core", "crypto", "kernels"])
 def test_exports_cover_the_reference(ref_pkg, port_pkg):
     assert set(ref_pkg.__all__) <= set(port_pkg.__all__)

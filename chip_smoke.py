@@ -151,7 +151,15 @@ Phases (any failure exits non-zero; nothing is caught):
    it), every MLP product on F/16 of its features; and arctic-480b's
    stationary-weight prefill split (tp_a 8, sp 2) at smoke size, the
    dense residual's down projection at its rank's share of the unsharded
-   one.  Then the work of phase 11b's decode step and phase 12's train
+   one.  Beside those, the layouts held to the shares GSPMD gives the
+   reference's products on the 1-pod mesh: mamba2-2.7b's and
+   jamba-1.5-large's long_500k decode at their full configs
+   (``run_cell``), every Mamba2 in-projection with D whole and its
+   features split as its weight's role splits them (``model.
+   ssm_shardings``), and arctic-480b's stationary-weight prefill_32k at
+   full width cut to one layer, its dense up projections on F/16 (the
+   weights gathered over "data") and its MoE router on the rank's own
+   65536 tokens.  Then the work of phase 11b's decode step and phase 12's train
    step, counted in one fake pass each on one rank, held against the
    times those phases measured: the measured step is no shorter than the
    roofline's compute term (989 TFLOP/s); the bytes term is printed.
@@ -176,6 +184,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -3117,7 +3126,11 @@ DRYRUN_MAX_ALLOCATED = 1 << 20
 # (12 query and 4 KV heads; F 176, so F/16 = 11 names no other dim) and
 # at full width cut to one layer, and arctic-480b's stationary-weight
 # prefill split (tp_a 8, sp 2; 8 query and 8 KV heads, 16 experts, F 224)
-LAYOUT_CASES = ("qwen2-vl-smoke", "qwen2-vl-full", "arctic-smoke")
+LAYOUT_CASES = ("qwen2-vl-smoke", "qwen2-vl-full", "arctic-smoke",
+                "arctic-full")
+# the long_500k decodes whose Mamba2 in-projections phase 14 holds to
+# GSPMD's shares, at full config on the 1-pod mesh
+SSM_CELLS = ("mamba2-2.7b", "jamba-1.5-large")
 
 
 def layout_case(name: str):
@@ -3137,6 +3150,12 @@ def layout_case(name: str):
         cfg = dataclasses.replace(get_config("qwen2-vl-7b"), num_layers=1)
         return (cfg, (2, 16, 16), ("pod", "data", "model"),
                 C.SHAPES["train_4k"], 80e9)
+    if name == "arctic-full":
+        # one layer at full width; the 1-byte budget makes the weights
+        # stationary, as the full model's 960 GB make them on the card
+        cfg = dataclasses.replace(get_config("arctic-480b"), num_layers=1)
+        return (cfg, (16, 16), ("data", "model"), C.SHAPES["prefill_32k"],
+                1.0)
     cfg = dataclasses.replace(get_config("arctic-480b", smoke=True),
                               num_heads=8, kv_heads=8, num_experts=16,
                               d_ff=224)
@@ -3173,7 +3192,7 @@ def layout_child(spec_path: str) -> int:
         out.update(ok=False, error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-3000:])
     out["trace_s"] = time.perf_counter() - t
-    if out["ok"] and shape.kind == "prefill":
+    if out["ok"] and spec["case"] == "arctic-smoke":
         out["whole"] = D.trace_step(cfg, shape, None, dev)["flops_by_op"]
     torch.cuda.synchronize()
     out["max_allocated"] = torch.cuda.max_memory_allocated()
@@ -3194,8 +3213,12 @@ def layout_checks(c: dict) -> str:
     F/16 add up to the MLP's nine a layer and microbatch (eleven with
     remat, whose recompute stops once the hidden is back: the two up
     projections again), each 2·N·D·F/16 with N = 2 rows x the sequence.
-    arctic: the dense residual's down projection runs on the rank's
-    tokens (over "data") and F/16, 1/32 of the unsharded product."""
+    arctic-smoke: the dense residual's down projection runs on the rank's
+    tokens (over "data") and F/16, 1/32 of the unsharded product.
+    arctic-full: the up projections run on the rank's 65536 tokens, D
+    whole and F/16, and the router on those tokens alone (GSPMD's
+    ``f32[65536,304]`` and ``f32[65536,128]``); neither runs as before
+    (F whole on D/8; the router on the 16 "data" ranks' tokens)."""
     check(c["ok"], f"phase 14 layout {c['case']}: {c.get('error')}\n"
           f"{c.get('trace', '')}")
     check(c["max_allocated"] <= DRYRUN_MAX_ALLOCATED,
@@ -3217,6 +3240,8 @@ def layout_checks(c: dict) -> str:
         return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
                 f"{c['tp']}; MLP {mlp:.4g} FLOPs a rank, every product on "
                 f"F/16 = {F // 16}")
+    if c["case"] == "arctic-full":
+        return _arctic_full_checks(c)
     n = 4 * 64
     whole = c["whole"][f"bmm 1x{n}x{F} @ 1x{F}x{Dm}"]
     key = f"bmm 1x{n // 2}x{F // 16} @ 1x{F // 16}x{Dm}"
@@ -3228,6 +3253,63 @@ def layout_checks(c: dict) -> str:
     return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
             f"{c['tp']} stationary; down projection {key} {whole / 32:.4g} "
             "FLOPs = the unsharded one / 32")
+
+
+def _arctic_full_checks(c: dict) -> str:
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("arctic-480b")
+    F, Dm, E, ops, n = c["d_ff"], c["d_model"], cfg.num_experts, c["ops"], \
+        2 * 32768
+    check(c["tp"] == [8, 1, 2] and c["stationary"],
+          f"phase 14 {c['case']}: tp {c['tp']}")
+    want = {f"bmm 1x{n}x{Dm} @ 1x{Dm}x{F // 16}":
+            2 * 2.0 * n * Dm * (F // 16) * c["layers"],
+            f"mm {n}x{Dm} @ {Dm}x{E}": 2.0 * n * Dm * E * c["layers"]}
+    for key, flops in want.items():
+        check(ops.get(key) == flops, f"phase 14 {c['case']}: {key} counts "
+              f"{ops.get(key)}, GSPMD's share is {flops}: {sorted(ops)}")
+    for key in (f"bmm 1x{n}x{Dm // 8} @ 1x{Dm // 8}x{F}",
+                f"mm {16 * n}x{Dm} @ {Dm}x{E}"):
+        check(key not in ops, f"phase 14 {c['case']}: {key} runs")
+    return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
+            f"{c['tp']} stationary; " + "; ".join(
+                f"{k} {v:.4g}" for k, v in want.items()) + " FLOPs a rank "
+            "(GSPMD's shares)")
+
+
+def ssm_checks(arch: str, rec: dict) -> str:
+    """Phase 14's checks of a long_500k decode: each Mamba2 in-projection
+    runs on the one token with D whole and its features split as GSPMD
+    splits the reference's (d_inner over the 16 model ranks, or over all
+    256 where the weights are stationary; the state and the heads over
+    the 16), one product a Mamba2 layer: a projection run otherwise (B,
+    C or dt whole, D split) leaves its share's count short.  Returns the
+    log line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.sharding import make_policy
+
+    cfg = get_config(arch)
+    check(rec["ok"], f"phase 14 {arch} long_500k: {rec.get('error')}\n"
+          f"{rec.get('trace', '')}")
+    pol = make_policy({"data": 16, "model": 16}, cfg, batch=1, train=False,
+                      hbm_bytes=rec["hbm_bytes"])
+    Dm, d_inner = cfg.d_model, cfg.ssm_heads * cfg.ssm_head_dim
+    layers = sum(s.kind == "mamba" for s in cfg.group) * cfg.num_groups
+    inner = 256 if pol.weight_stationary else 16
+    want = Counter()
+    for n in (d_inner // inner, d_inner // inner, cfg.ssm_state // 16,
+              cfg.ssm_state // 16, cfg.ssm_heads // 16):
+        want[f"bmm 1x1x{Dm} @ 1x{Dm}x{n}"] += 2.0 * Dm * n * layers
+    ops = rec["flops_by_op"]
+    for key, flops in want.items():
+        check(ops.get(key) == flops, f"phase 14 {arch} long_500k: {key} "
+              f"counts {ops.get(key)}, GSPMD's share is {flops}: "
+              f"{sorted(ops)}")
+    return (f"{arch} long_500k: ok, traced in {rec['trace_s']:.1f} s; "
+            f"{rec['flops']:.4g} FLOPs a rank; tp {rec['tp']} stationary "
+            f"{pol.weight_stationary}; in-projections " + ", ".join(
+                f"{k} {v:.4g}" for k, v in want.items()))
 
 
 def dryrun_child(spec_path: str) -> int:
@@ -3248,8 +3330,9 @@ def dryrun_child(spec_path: str) -> int:
     build.reset_launches()
     D.start_fake_world(512 if multi else 256)
     mesh = make_production_mesh(multi_pod=multi)
-    rec = D.run_cell(LLM_ARCH, spec["shape"], mesh, tag,
+    rec = D.run_cell(spec.get("arch", LLM_ARCH), spec["shape"], mesh, tag,
                      hbm_bytes=spec["hbm_bytes"])
+    rec["hbm_bytes"] = spec["hbm_bytes"]
     torch.cuda.synchronize()
     Path(spec["out"]).write_text(json.dumps({
         "rec": rec, "max_allocated": torch.cuda.max_memory_allocated(),
@@ -3258,13 +3341,18 @@ def dryrun_child(spec_path: str) -> int:
 
 
 def dryrun_cells(hbm_bytes: float, timeout: float = 600):
-    """14a: the DRYRUN_CELLS and LAYOUT_CASES children, started together;
-    returns (cells' results, layout cases' results)."""
+    """14a: the DRYRUN_CELLS, LAYOUT_CASES and SSM_CELLS children,
+    started together; returns (cells' results, layout cases' results,
+    SSM cells' results)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
     jobs = [("--dryrun-child", {"mesh": mesh, "shape": shape,
                                 "hbm_bytes": hbm_bytes})
             for mesh, shape in DRYRUN_CELLS]
     jobs += [("--layout-child", {"case": c}) for c in LAYOUT_CASES]
+    jobs += [("--dryrun-child", {"arch": a, "mesh": "single",
+                                 "shape": "long_500k",
+                                 "hbm_bytes": hbm_bytes})
+             for a in SSM_CELLS]
     procs = []
     try:
         for i, (flag, spec) in enumerate(jobs):
@@ -3285,7 +3373,8 @@ def dryrun_cells(hbm_bytes: float, timeout: float = 600):
             check(p.returncode == 0, f"phase 14 {jobs[i]}: exit code "
                   f"{p.returncode}:\n{tail}")
             outs.append(json.loads((tmp / f"out{i}.json").read_text()))
-        return outs[:len(DRYRUN_CELLS)], outs[len(DRYRUN_CELLS):]
+        n, m = len(DRYRUN_CELLS), len(DRYRUN_CELLS) + len(LAYOUT_CASES)
+        return outs[:n], outs[n:m], outs[m:]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3358,7 +3447,7 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
 
     hbm = float(torch.cuda.get_device_properties(0).total_memory)
     build.reset_launches()                        # the phase starts
-    cells, layouts = dryrun_cells(hbm)
+    cells, layouts, ssm = dryrun_cells(hbm)
     steps = roofline_steps(dev, decode_ms, train_ms)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)               # the phase ends
@@ -3391,6 +3480,16 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
         log("  layout " + layout_checks(c))
         c.pop("whole", None)
         c.pop("ops", None)
+    out["ssm"] = []
+    for arch, c in zip(SSM_CELLS, ssm):
+        check(c["max_allocated"] <= DRYRUN_MAX_ALLOCATED
+              and not any(c["launches"].values()),
+              f"phase 14 {arch} long_500k: {c['max_allocated']} bytes "
+              f"allocated, launches {c['launches']}")
+        log("  layout " + ssm_checks(arch, c["rec"]))
+        rec = {k: v for k, v in c["rec"].items()
+               if k not in ("trace", "flops_by_op")}
+        out["ssm"].append({"arch": arch, **rec})
     for name, r in steps.items():
         log(f"  roofline {name}: measured {r['measured_ms']:.3f} ms; "
             f"T_comp {r['t_compute_ms']:.3f} ms ({r['compute_share']:.4f} "

@@ -49,9 +49,16 @@ def mlp_shardings(shardings):
     ``weight_stationary`` ``wi`` splits F over "data" too, but the tokens
     hold "data" (a mesh axis splits one dim of a tensor), so the hidden
     keeps the tokens' split and F the model axes alone.  "mlp_wi" and
-    "mlp_wo", a chunk of the weights in :func:`chunked_gated_mlp`: F over
-    the model axes, D whole.  A batch-1 decode step has no "acts" spec,
-    and its MLP no constraint."""
+    "mlp_wo", a chunk of the weights in :func:`chunked_gated_mlp`, and
+    the one-shot path's weights under ``weight_stationary`` in a pass of
+    more than ``CHUNK_MIN_TOKENS`` tokens: F over the model axes, D
+    whole.  So stationary weights are gathered over "data" for a
+    prefill, as GSPMD gathers them in the reference's (arctic-480b's
+    dense up projections run ``65536x7168 @ 7168x304`` a rank, where
+    DTensor ran them on D/8 and F whole, twice that share), and stay
+    stationary in a decode step, where GSPMD gathers the tokens instead
+    (``128x7168 @ 7168x19``).  A batch-1 decode step has no "acts"
+    spec, and its MLP no constraint."""
     spec = shardings.get("acts") if shardings else None
     if spec is None:
         return None
@@ -92,7 +99,12 @@ def gated_mlp(x, wi_g, wi_u, wo, shardings=None):
     D, F_ = wi_g.shape
     n_tokens = x.numel() // x.shape[-1]
     if D * F_ <= CHUNK_MIN_ELEMS or n_tokens <= CHUNK_MIN_TOKENS:
-        return _swiglu(x, wi_g, wi_u, wo, mlp_shardings(shardings))
+        mlp = mlp_shardings(shardings)
+        if mlp is not None and mlp["_policy"].weight_stationary \
+                and n_tokens > CHUNK_MIN_TOKENS:
+            wi_g, wi_u = (wsc(w, mlp, "mlp_wi") for w in (wi_g, wi_u))
+            wo = wsc(wo, mlp, "mlp_wo")
+        return _swiglu(x, wi_g, wi_u, wo, mlp)
     return chunked_gated_mlp(x, wi_g, wi_u, wo, shardings)
 
 

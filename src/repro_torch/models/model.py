@@ -53,7 +53,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.constrain import wsc as _wsc
+from repro_torch.models.constrain import wsc_grad
 from repro_torch.models.layers import (
+    CHUNK_MIN_TOKENS,
     dtype_of,
     gated_mlp,
     mlp_down,
@@ -397,15 +399,19 @@ def sharded_context(shardings):
 def _rows(x, shardings):
     """A normed input (B, T, D) laid out as "acts" but with D whole, as
     GSPMD lays it out before a norm and the column-parallel projections
-    after it.  Left to DTensor, the norm's partial sums over a split D
-    are reduce-scattered onto the sequence, and every op after reshards
-    through strided layouts (whose redistribution DTensor plans by a
-    search that took minutes a layer at the production meshes)."""
-    spec = shardings.get("acts") if shardings else None
-    if spec is None:
+    after it; in a batch-1 decode step, which has no "acts" spec, the
+    one token whole too.  Left to DTensor, the norm's partial sums over a
+    split D are reduce-scattered onto the sequence, and every op after
+    reshards through strided layouts (whose redistribution DTensor plans
+    by a search that took minutes a layer at the production meshes); in
+    mamba2-2.7b's long_500k decode torch 2.13 split the head's D over 16
+    ranks, where GSPMD and torch 2.11 keep it whole."""
+    policy = _policy(shardings)
+    if policy is None:
         return x
-    return _wsc(x, {"rows": P(*spec[:-1], None),
-                    "_policy": shardings["_policy"]}, "rows")
+    spec = shardings.get("acts")
+    toks = (None, None) if spec is None else spec[:-1]
+    return _wsc(x, {"rows": P(*toks, None), "_policy": policy}, "rows")
 
 
 def _gathered(w, shardings):
@@ -680,17 +686,71 @@ def _ssm_sharded(cfg: ModelConfig, policy, args, cache):
     return y, new
 
 
+#: each Mamba2 in-projection: (weight, its role, the output's spec name)
+_SSM_IN = (("w_x", "ssm_in", "ssm_inner"), ("w_z", "ssm_in", "ssm_inner"),
+           ("w_B", "ssm_in_state", "ssm_state"),
+           ("w_C", "ssm_in_state", "ssm_state"),
+           ("w_dt", "ssm_dt", "ssm_dt"))
+
+
+def ssm_shardings(cfg: ModelConfig, shardings, n_tokens: int):
+    """The Mamba2 projections' layouts under a policy (None without one)
+    for a pass of ``n_tokens`` tokens, as GSPMD lays out the reference's
+    products.  The tokens are laid out as "ssm_inner" has them (whole in
+    a batch-1 decode step, which has no such spec), and under
+    ``weight_stationary`` whole over "data" in a pass of at most
+    ``CHUNK_MIN_TOKENS``.
+    "ssm_rows": the normed input, D whole; also the out projection's
+    output gradient (GSPMD gathers that cotangent, as the dense MLP's
+    "mlp_out").  "ssm_inner" (xz, z, the gated input), "ssm_state" (B,
+    C) and "ssm_dt": the last dim split as the weight's role splits its
+    output features, less the axes the tokens take; each in-projection's
+    weight as "w_" + that name, and the out projection's "w_ssm_out"
+    with its rows split as "ssm_inner" and D whole.  So an FSDP weight,
+    and a stationary one beside a prefill's tokens, is gathered over
+    "data" for its product, and a decode step's stationary weights are
+    not: GSPMD gathers them in jamba-1.5-large's decode_32k too, but the
+    port's stationary split puts "data" first, where JAX puts it last,
+    so DTensor would gather each whole weight on every rank (6x the
+    step's bytes).  There the decode step's B, C and dt run on all its
+    tokens, 16x the few FLOPs GSPMD gives them.
+    Left to DTensor the layouts depend on torch's version: 2.13 split D
+    over "data" in mamba2-2.7b's long_500k decode and ran B, C and dt
+    whole, and 2.11 ran jamba-1.5-large's out projection backward on
+    d_inner/8, twice its share."""
+    policy = _policy(shardings)
+    if policy is None:
+        return None
+
+    def axes(e):
+        return (e,) if isinstance(e, str) else tuple(e or ())
+
+    inner = shardings.get("ssm_inner")
+    toks = (None, None) if inner is None else tuple(inner[:-1])
+    if policy.weight_stationary and n_tokens <= CHUNK_MIN_TOKENS:
+        toks = P(*(tuple(a for a in axes(e) if a != "data") for e in toks))
+    used = {a for e in toks for a in axes(e)}
+    out = {"ssm_rows": P(*toks, None), "_policy": policy}
+    for _, role, name in _SSM_IN:
+        e = tuple(a for a in axes(policy.spec(role, cfg)[-1])
+                  if a not in used)
+        out[name], out["w_" + name] = P(*toks, e), P(None, e)
+    out["w_ssm_out"] = P(out["ssm_inner"][-1], None)
+    return out
+
+
 def _mamba_apply(cfg: ModelConfig, p, x, cache=None, shardings=None):
     """Mamba2 block.  Returns (out, state): the prompt's final state, or
-    the cache views updated in place for a decode step."""
+    the cache views updated in place for a decode step.  Under a policy
+    the projections are laid out by :func:`ssm_shardings` (the input's
+    pin holds its gradient, the five products' partial sums, too)."""
     dt_ = dtype_of(cfg)
-    xz = _wsc(torch.einsum("btd,de->bte", x, p["w_x"].to(dt_)), shardings,
-              "ssm_inner")
-    z = _wsc(torch.einsum("btd,de->bte", x, p["w_z"].to(dt_)), shardings,
-             "ssm_inner")
-    Bm = torch.einsum("btd,ds->bts", x, p["w_B"].to(dt_))
-    Cm = torch.einsum("btd,ds->bts", x, p["w_C"].to(dt_))
-    dt_raw = torch.einsum("btd,dh->bth", x, p["w_dt"].to(dt_))
+    ssm = ssm_shardings(cfg, shardings, x.numel() // x.shape[-1])
+    x = _wsc(x, ssm, "ssm_rows")
+    xz, z, Bm, Cm, dt_raw = (
+        _wsc(torch.einsum("btd,de->bte", x,
+                          _wsc(p[w].to(dt_), ssm, "w_" + name)), ssm, name)
+        for w, _, name in _SSM_IN)
     dtv = F.softplus(dt_raw.float() + p["dt_bias"].float())
     Aneg = -torch.exp(p["A_log"].float())
     args = (xz, Bm, Cm, dtv, Aneg, p["D_skip"], p["conv_x"], p["conv_B"],
@@ -700,9 +760,11 @@ def _mamba_apply(cfg: ModelConfig, p, x, cache=None, shardings=None):
         y, new_cache = _ssm_sharded(cfg, policy, args, cache)
     else:
         y, new_cache = _ssm_core(cfg, *args, cache=cache)
-    gated = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("bte,ed->btd", gated.to(dt_), p["w_out"].to(dt_))
-    return out, new_cache
+    gated = _wsc(rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps),
+                 ssm, "ssm_inner")
+    out = torch.einsum("bte,ed->btd", gated.to(dt_),
+                       _wsc(p["w_out"].to(dt_), ssm, "w_ssm_out"))
+    return wsc_grad(out, ssm, "ssm_rows"), new_cache
 
 
 def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):

@@ -101,6 +101,13 @@ def moe_ffn(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo):
 # ---------------------------------------------------------------------------
 # expert-parallel path (the reference's shard_map body)
 # ---------------------------------------------------------------------------
+def _all_gather(x, group, dim: int = 0):
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
 class _AllGather(torch.autograd.Function):
     """Concatenate every rank's ``x`` along ``dim`` over ``group``; the
     adjoint sums the gradients over the group and keeps this rank's slice
@@ -109,9 +116,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim: int):
         ctx.group, ctx.dim = group, dim
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -119,6 +124,24 @@ class _AllGather(torch.autograd.Function):
         dist.all_reduce(g, group=ctx.group)
         n = dist.get_world_size(ctx.group)
         return g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)], None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum ``x`` over ``group`` and keep this rank's slice of dim 0 (the
+    slice :class:`_AllGather` put there); the adjoint gathers the
+    gradients of every rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = list(x.contiguous().chunk(dist.get_world_size(group)))
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group), None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -168,10 +191,17 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
     loss is averaged over dp.
 
     Under ``weight_stationary`` the expert features also split over
-    "data" and the sum runs over "data" too, so the tokens must be the
-    same on every "data" rank: the port gathers them over "data" first,
-    where the reference keeps them data-sharded and sums products of
-    different tokens (ROADMAP Queue 3).
+    "data" and the sum runs over "data" too, so the experts must see the
+    same tokens on every "data" rank, where the reference keeps them
+    data-sharded and sums products of different tokens (ROADMAP Queue
+    3).  Each rank routes its own tokens (the router's product is
+    GSPMD's share of the reference's), then gathers them over "data"
+    with their expert ids and gates; positions are taken over the
+    gathered ids, so the same tokens are kept and dropped as if all
+    were routed together.  The output's partial sums are
+    reduce-scattered over "data" back to each rank's tokens and then
+    all-reduced over the tp axes, and the aux loss averages f and P over
+    "data" before their product.
 
     Returns (y DTensor (B, T, D) in the input's batch layout, aux)."""
     from torch.distributed.tensor import DTensor
@@ -186,13 +216,15 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
     dp = policy.dp if not policy.seq_shard_data else ()
     fs = "data" if policy.fsdp else None
     tp_all = tuple(a for a in policy.tp_full if shape[a] > 1)
+    # stationary weights: the features' partial sums span "data" too, and
+    # tokens split over "data" are gathered in the body
+    data_sum = policy.weight_stationary and shape["data"] > 1
+    own = data_sum and "data" in dp
     if policy.weight_stationary:
         f_axes = f_axes + ("data",)
-        psum_axes = tp_all + (("data",) if shape["data"] > 1 else ())
-    else:
-        psum_axes = tp_all
-    x_dp = tuple(a for a in dp if a not in psum_axes)
-    mean_axes = tuple(a for a in x_dp if shape[a] > 1)
+    psum_axes = tp_all + (("data",) if data_sum and not own else ())
+    mean_axes = tuple(a for a in dp if shape[a] > 1
+                      and not (own and a == "data"))
     e_loc = E // math.prod(shape[a] for a in e_axes)
 
     # chunk the expert FFN features when the gathered weights would
@@ -214,13 +246,24 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
 
     def body(xb, rw, wg, wu, wod):
         # xb: (B_loc, T, D); rw: (D/fs, E); w*: (E_loc, D/fs, F_loc)
-        n_loc = xb.shape[0] * xb.shape[1]
-        xf = xb.reshape(n_loc, D)
+        n_own = xb.shape[0] * xb.shape[1]
+        xf = xb.reshape(n_own, D)
         rw = gather(rw, 0)
         logits = xf.float() @ rw.float()
         probs = torch.softmax(logits, dim=-1)
         gates, eidx = torch.topk(probs, k, dim=-1)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        # load-balance aux's f and P on this rank's tokens
+        f = expert_counts(eidx, E).float() / (n_own * k)
+        p_mean = probs.mean(0)
+        if own:
+            grp = policy.group("data")
+            xf = _AllGather.apply(xf, grp, 0)
+            gates = _AllGather.apply(gates, grp, 0)
+            eidx = _all_gather(eidx, grp)
+            f = _AllReduce.apply(f, grp) / shape["data"]
+            p_mean = _AllReduce.apply(p_mean, grp) / shape["data"]
+        n_loc = xf.shape[0]
         capacity = max(1, math.ceil(n_loc * k * cfg.capacity_factor / E))
         pos, keep = _local_positions(eidx, k, n_loc, E, capacity)
 
@@ -258,12 +301,13 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
         for s in range(k):
             part = ye[e_rel[s], pos[s]].float()
             y = y + part * (gates[:, s] * mine[s])[:, None]
+        if own:                               # "data"'s feature partials
+            y = _ReduceScatter.apply(y, grp)
         for a in psum_axes:                   # experts + feature partials
             y = _AllReduce.apply(y, policy.group(a))
 
         # load-balance aux (local f/P are unbiased estimates; mean over dp)
-        f = expert_counts(eidx, E).float() / (n_loc * k)
-        aux = E * torch.sum(f * probs.mean(0))
+        aux = E * torch.sum(f * p_mean)
         for a in mean_axes:
             aux = _AllReduce.apply(aux, policy.group(a)) / shape[a]
         # every rank of the summed axes computes the same aux: count its
@@ -271,7 +315,7 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
         aux = aux / n_red + (aux - aux / n_red).detach()
         return y.reshape(xb.shape).to(xb.dtype), aux
 
-    x_pl = policy.placements((x_dp or None, None, None))
+    x_pl = policy.placements((dp or None, None, None))
     w_in = policy.placements((e_axes or None, fs, f_axes or None))
     w_out = policy.placements((e_axes or None, f_axes or None, fs))
     for t in (x, router_w, wi_g, wi_u, wo):

@@ -59,7 +59,11 @@ def act_shardings(cfg: ModelConfig, policy) -> dict:
     Mamba inner channels over the model axes; ``_policy`` carries the
     policy into the layers (the MoE and attention bodies read its mesh).
     The port's attention takes its 4-d (B, T, H, hd) form of "q" with the
-    sequence whole (:func:`repro_torch.models.model._attn_sharded`)."""
+    sequence whole (:func:`repro_torch.models.model._attn_sharded`).  The
+    entries are the reference's, one for one: the dense MLP's layouts
+    (:func:`repro_torch.models.layers.mlp_shardings`) and the Mamba2
+    in-projections' (:func:`repro_torch.models.model.ssm_shardings`) are
+    derived from them where they are used."""
     bs = tuple(policy.batch_spec())
     b = bs[0] if not policy.seq_shard_data else None
     t = bs[1]

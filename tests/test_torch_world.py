@@ -285,7 +285,69 @@ def task_train(inp, rank, world):
     return res
 
 
-TASKS = {"model": task_model, "moe": task_moe, "train": task_train}
+def task_layout(inp, rank, world):
+    """``task_moe`` on each mesh of ``inp["moe"]``; and one Mamba2 block
+    (``model._mamba_apply``, its in-projections laid out by
+    ``model.ssm_shardings``) for each case of ``inp["mamba"]`` (mesh,
+    train, memory budget, batch, sequence, whether the pass has the
+    activations' specs): its output, final state and the gradients of
+    ``sum(out * dy)`` by the input and the projections' weights, next to
+    the same from the unsharded block on the same weights and inputs."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import make_policy
+    from repro_torch.train.train_loop import act_shardings
+
+    out = {"moe": {}, "mamba": {}}
+    for name, case in inp["moe"].items():
+        out["moe"][name] = task_moe(dict(inp["moe_inputs"], **case), rank,
+                                    world)
+
+    cfg = _f32cfg(inp["mamba_arch"])
+    slot = next(i for i, s in enumerate(cfg.group) if s.kind == "mamba")
+    weights = {k: torch.as_tensor(v) for k, v in inp["mamba_weights"].items()}
+    for name, (mesh_shape, train, hbm, B, T, acts_given) in \
+            inp["mamba"].items():
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="cpu")
+        pol = make_policy(mesh, cfg, batch=B, train=train, hbm_bytes=hbm)
+        x, dy = (torch.as_tensor(inp[k][:B, :T])
+                 for k in ("mamba_x", "mamba_dy"))
+        grad_of = ("w_x", "w_z", "w_B", "w_C", "w_dt", "w_out")
+        p0 = {k: v.clone().requires_grad_(k in grad_of)
+              for k, v in weights.items()}
+        x0 = x.clone().requires_grad_()
+        y0, st0 = M._mamba_apply(cfg, p0, x0)
+        g0 = torch.autograd.grad(y0, [x0] + [p0[k] for k in grad_of],
+                                 grad_outputs=dy)
+
+        acts = act_shardings(cfg, pol) if acts_given else {"_policy": pol}
+        specs = M.param_specs(cfg, pol)["blocks"][slot]
+        p = {k: M.place(v[None], pol, specs[k], src_data_rank=None)[0]
+             for k, v in weights.items()}
+        p = {k: v.detach().requires_grad_(k in grad_of)
+             for k, v in p.items()}
+        toks = tuple(acts["acts"][:-1]) if acts_given else (None, None)
+        xd = M.place(x, pol, toks + (None,), src_data_rank=None)
+        xd.requires_grad_()
+        dyd = M.place(dy, pol, toks + (None,), src_data_rank=None)
+        with M.sharded_context(acts):
+            y, st = M._mamba_apply(cfg, p, xd, shardings=acts)
+            g = torch.autograd.grad(y, [xd] + [p[k] for k in grad_of],
+                                    grad_outputs=dyd)
+        out["mamba"][name] = {
+            "policy": [pol.tp_a, pol.tp_b, pol.sp, pol.dp_size, pol.fsdp,
+                       pol.weight_stationary, pol.seq_shard_data],
+            "y": (_full(y), _full(y0)), "h": (_full(st["h"]),
+                                              _full(st0["h"])),
+            "grads": {k: (_full(a), _full(b)) for k, a, b in zip(
+                ("x",) + grad_of, g, g0)}}
+    return out
+
+
+TASKS = {"model": task_model, "moe": task_moe, "train": task_train,
+         "layout": task_layout}
 
 
 def _main():

@@ -159,7 +159,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ssm_shardings``), and arctic-480b's stationary-weight prefill_32k at
    full width cut to one layer, its dense up projections on F/16 (the
    weights gathered over "data") and its MoE router on the rank's own
-   65536 tokens.  Then the work of phase 11b's decode step and phase 12's train
+   65536 tokens.  Each rank embeds and combines only its own tokens:
+   granite-3-8b's prefill_32k holds at most PREFILL_TMP_MAX temporary
+   bytes a rank, and the one-layer arctic-480b prefill peaks at most at
+   ARCTIC_FULL_PEAK_MAX a rank; both readings are printed.  Then the work
+   of phase 11b's decode step and phase 12's train
    step, counted in one fake pass each on one rank, held against the
    times those phases measured: the measured step is no shorter than the
    roofline's compute term (989 TFLOP/s); the bytes term is printed.
@@ -3131,6 +3135,13 @@ LAYOUT_CASES = ("qwen2-vl-smoke", "qwen2-vl-full", "arctic-smoke",
 # the long_500k decodes whose Mamba2 in-projections phase 14 holds to
 # GSPMD's shares, at full config on the 1-pod mesh
 SSM_CELLS = ("mamba2-2.7b", "jamba-1.5-large")
+# each rank embeds and combines only its own tokens: granite-3-8b's
+# prefill_32k (1-pod) holds at most this many temporary bytes a rank (the
+# lookup of all 32 sequences made 25.77 GB of them), and arctic-full's
+# stationary MoE prefill peaks at most this many bytes a rank (its
+# gathered tokens and their float32 combine made 150.3 GB)
+PREFILL_TMP_MAX = 4e9
+ARCTIC_FULL_PEAK_MAX = 30e9
 
 
 def layout_case(name: str):
@@ -3184,7 +3195,8 @@ def layout_child(spec_path: str) -> int:
            "remat": cfg.remat}
     t = time.perf_counter()
     try:
-        out["ops"] = D.trace_step(cfg, shape, pol, dev)["flops_by_op"]
+        rec = D.trace_step(cfg, shape, pol, dev)
+        out["ops"], out["peak"] = rec["flops_by_op"], rec["peak_bytes_per_dev"]
         out["ok"] = True
     except Exception as e:  # reported and failed by the phase
         import traceback
@@ -3272,10 +3284,14 @@ def _arctic_full_checks(c: dict) -> str:
     for key in (f"bmm 1x{n}x{Dm // 8} @ 1x{Dm // 8}x{F}",
                 f"mm {16 * n}x{Dm} @ {Dm}x{E}"):
         check(key not in ops, f"phase 14 {c['case']}: {key} runs")
+    check(c["peak"] <= ARCTIC_FULL_PEAK_MAX, f"phase 14 {c['case']}: peak "
+          f"{c['peak'] / 1e9:.2f} GB a rank, more than "
+          f"{ARCTIC_FULL_PEAK_MAX / 1e9:.0f}")
     return (f"{c['case']}: ok, traced in {c['trace_s']:.1f} s; tp "
             f"{c['tp']} stationary; " + "; ".join(
                 f"{k} {v:.4g}" for k, v in want.items()) + " FLOPs a rank "
-            "(GSPMD's shares)")
+            f"(GSPMD's shares); peak {c['peak'] / 1e9:.2f} GB a rank (at "
+            f"most {ARCTIC_FULL_PEAK_MAX / 1e9:.0f})")
 
 
 def ssm_checks(arch: str, rec: dict) -> str:
@@ -3464,6 +3480,11 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
               "allocated on the card")
         check(all(v == 0 for v in c["launches"].values()),
               f"phase 14 {shape} {mesh}: launches {c['launches']}")
+        tmp = rec["tmp_bytes_per_dev"]
+        if (mesh, shape) == ("single", "prefill_32k"):
+            check(tmp <= PREFILL_TMP_MAX, f"phase 14 {shape} {mesh}: "
+                  f"{tmp / 1e9:.2f} GB of temporaries a rank, more than "
+                  f"{PREFILL_TMP_MAX / 1e9:.0f}")
         rec.pop("trace", None)
         out["cells"].append({**rec, "max_allocated": c["max_allocated"],
                              "launches": c["launches"]})
@@ -3473,7 +3494,8 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
             f"{json.dumps(rec['collective_bytes_by_kind'])} bytes "
             f"({json.dumps(rec['collective_counts'])}), peak "
             f"{rec['peak_bytes_per_dev'] / 1e9:.2f} GB of "
-            f"{hbm / 1e9:.2f}; tp {rec['tp']} fsdp {rec['fsdp']}; card "
+            f"{hbm / 1e9:.2f} (temporaries {tmp / 1e9:.2f}); tp "
+            f"{rec['tp']} fsdp {rec['fsdp']}; card "
             f"allocated {c['max_allocated']} bytes")
     out["layout"] = layouts
     for c in layouts:

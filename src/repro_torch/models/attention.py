@@ -52,8 +52,9 @@ def rope_angles(cfg: ModelConfig, positions):
 
 
 def apply_rope(x, cos, sin):
-    """x: (B, T, ..., hd); cos/sin: (B, T, hd/2) — rotate-half convention,
-    in float32, result in x's dtype."""
+    """x: (B, T, ..., hd); cos/sin: (B, T, hd/2) or (1, T, hd/2), broadcast
+    over the batch — rotate-half convention, in float32, result in x's
+    dtype."""
     half = x.shape[-1] // 2
     shape = tuple(cos.shape[:2]) + (1,) * (x.dim() - 3) + (half,)
     c = cos.reshape(shape)

@@ -34,8 +34,9 @@ def rms_norm(x, scale, eps: float):
     """float32 statistics, ``1 + scale`` convention, result in x's dtype."""
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
-    return out.to(x.dtype)
+    # rebound, so that without autograd one float32 copy of x lives at once
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * (1.0 + scale.float())).to(x.dtype)
 
 
 def mlp_shardings(shardings):
@@ -128,12 +129,15 @@ def chunked_gated_mlp(x, wi_g, wi_u, wo, shardings=None):
         raise ValueError(f"an F-chunk of {c} does not split over the "
                          f"{mlp['_policy'].model_size} ranks of the model "
                          "axes")
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    # the first chunk starts the sum: a plain zeros of x's shape would
+    # count as replicated, the whole batch's float32 on every rank
+    acc = None
     for i in range(n_chunks):
         s = slice(i * c, (i + 1) * c)
         g, u = (wsc(w[:, s], mlp, "mlp_wi") for w in (wi_g, wi_u))
         o = wsc(wo[s], mlp, "mlp_wo")
-        acc = acc + _swiglu(x, g, u, o, mlp).float()
+        y = _swiglu(x, g, u, o, mlp).float()
+        acc = y if acc is None else acc + y
     return acc.to(x.dtype)
 
 

@@ -27,10 +27,10 @@ has no usable rule, a per-rank body runs on the shards GSPMD would use:
 attention (query heads split over tp_a x tp_b, against the KV heads they
 read), the Mamba2 convs and SSD scan (heads split, B and C whole), and
 the expert-parallel MoE (:func:`repro_torch.models.moe.moe_ffn_sharded`);
-the embedding gather reads the whole table, and the CE contracts a
-one-hot as the reference does.  Plain tensors (positions, masks) count
-as replicated inside :func:`sharded_context`, which the backward needs
-too.
+the embedding gather reads the whole table with each rank's own tokens,
+and the CE contracts a one-hot as the reference does.  Plain tensors
+(positions, masks) count as replicated inside :func:`sharded_context`,
+which the backward needs too.
 """
 
 from __future__ import annotations
@@ -448,24 +448,28 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
         if isinstance(table, DTensor):
             # the gather's backward (index_put into a split table) has no
             # working DTensor rule in every torch: gather from the whole
-            # table with every token, as GSPMD may
-            rep = _replicated(table)
-            table = table.redistribute(table.device_mesh, rep)
-            if isinstance(tokens, DTensor):
-                tokens = tokens.redistribute(tokens.device_mesh, rep)
+            # table, each rank its own tokens (their batch layout), whose
+            # lookup's backward is the table's gradient summed over them
+            table = table.redistribute(table.device_mesh,
+                                       _replicated(table))
+            x = F.embedding(tokens, table)
+        else:
+            x = table[tokens]
         # gather, then cast: the same numbers as casting the whole table
-        x = table[tokens].to(dt)
+        x = x.to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
 
 
 def _positions(cfg: ModelConfig, batch, T: int):
+    """The batch's positions, or ``arange(T)`` as one row (1, T): its
+    RoPE angles broadcast over the batch, so no rank makes them for every
+    sequence of the global batch."""
     if "positions" in batch:
         return batch["positions"]
     src = batch["tokens"] if "tokens" in batch else batch["embeds"]
-    B = src.shape[0]
-    return torch.arange(T, device=src.device).expand(B, T)
+    return torch.arange(T, device=src.device)[None]
 
 
 def _slot(p, g: int) -> Dict[str, torch.Tensor]:
@@ -813,6 +817,7 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
     if cfg.sandwich_norm:
         mix = rms_norm(mix, p["post_norm"], cfg.norm_eps)
     x = x + mix
+    del h_in, mix           # not held through the FFN's temporaries
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff > 0:

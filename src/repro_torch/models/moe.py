@@ -11,7 +11,7 @@ of shape (N, E) is materialized beyond the router's probabilities.
 :class:`repro_torch.models.sharding.ShardingPolicy`: the reference's
 ``shard_map`` body on each rank's local shards, with explicit
 ``torch.distributed`` collectives whose adjoints are written out
-(:class:`_AllGather`, :class:`_AllReduce`).
+(:class:`_AllGather`, :class:`_AllReduce`, :class:`_AllReduceShared`).
 """
 
 from __future__ import annotations
@@ -126,22 +126,24 @@ class _AllGather(torch.autograd.Function):
         return g.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)], None, None
 
 
-class _ReduceScatter(torch.autograd.Function):
-    """Sum ``x`` over ``group`` and keep this rank's slice of dim 0 (the
-    slice :class:`_AllGather` put there); the adjoint gathers the
-    gradients of every rank's slice."""
+class _AllReduceShared(torch.autograd.Function):
+    """Sum ``x`` over ``group`` in ``dtype``, where each rank reads the sum
+    in its own way (its own feature shard, its own tokens' rows): the
+    gradient of its own term is every rank's gradient of the sum, summed
+    (and cast back to ``x``'s dtype)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        parts = list(x.contiguous().chunk(dist.get_world_size(group)))
-        out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts, group=group)
-        return out
+    def forward(ctx, x, group, dtype):
+        ctx.group, ctx.dtype = group, x.dtype
+        x = x.to(dtype, copy=True)
+        dist.all_reduce(x, group=group)
+        return x
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group), None
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g.to(ctx.dtype), None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -195,13 +197,18 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
     same tokens on every "data" rank, where the reference keeps them
     data-sharded and sums products of different tokens (ROADMAP Queue
     3).  Each rank routes its own tokens (the router's product is
-    GSPMD's share of the reference's), then gathers them over "data"
-    with their expert ids and gates; positions are taken over the
-    gathered ids, so the same tokens are kept and dropped as if all
-    were routed together.  The output's partial sums are
-    reduce-scattered over "data" back to each rank's tokens and then
-    all-reduced over the tp axes, and the aux loss averages f and P over
-    "data" before their product.
+    GSPMD's share of the reference's) and gathers only their expert ids
+    over "data"; positions are taken over the gathered ids, so the same
+    tokens are kept and dropped as if all were routed together.  Each
+    rank then writes its own tokens into the (E_loc, C, D) capacity
+    buffer at their positions; the ranks' rows are disjoint, so the
+    buffer's sum over "data" is every rank's dispatch, exactly.  The
+    experts' float32 output partials are summed over "data" the same
+    way, each rank combines its own tokens' rows, and the sum over the
+    tp axes follows.  No rank holds a row of D for every token of
+    "data": the buffer's C rows an expert are the capacity, k x
+    capacity_factor / E of the gathered tokens.  The aux loss averages f
+    and P over "data" before their product.
 
     Returns (y DTensor (B, T, D) in the input's batch layout, aux)."""
     from torch.distributed.tensor import DTensor
@@ -217,7 +224,7 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
     fs = "data" if policy.fsdp else None
     tp_all = tuple(a for a in policy.tp_full if shape[a] > 1)
     # stationary weights: the features' partial sums span "data" too, and
-    # tokens split over "data" are gathered in the body
+    # tokens split over "data" meet in the capacity buffer
     data_sum = policy.weight_stationary and shape["data"] > 1
     own = data_sum and "data" in dp
     if policy.weight_stationary:
@@ -256,16 +263,18 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
         # load-balance aux's f and P on this rank's tokens
         f = expert_counts(eidx, E).float() / (n_own * k)
         p_mean = probs.mean(0)
+        ids = eidx
         if own:
             grp = policy.group("data")
-            xf = _AllGather.apply(xf, grp, 0)
-            gates = _AllGather.apply(gates, grp, 0)
-            eidx = _all_gather(eidx, grp)
+            ids = _all_gather(eidx, grp)       # every "data" rank's ids
             f = _AllReduce.apply(f, grp) / shape["data"]
             p_mean = _AllReduce.apply(p_mean, grp) / shape["data"]
-        n_loc = xf.shape[0]
+        n_loc = ids.shape[0]
         capacity = max(1, math.ceil(n_loc * k * cfg.capacity_factor / E))
-        pos, keep = _local_positions(eidx, k, n_loc, E, capacity)
+        pos, keep = _local_positions(ids, k, n_loc, E, capacity)
+        if own:                               # this rank's tokens' rows
+            r0 = dist.get_rank(grp) * n_own
+            pos, keep = pos[:, r0:r0 + n_own], keep[:, r0:r0 + n_own]
 
         mine, e_rel = [], []
         xe = torch.zeros((e_loc, capacity, D), dtype=xb.dtype,
@@ -278,6 +287,8 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
             e_rel.append(r)
             contrib = torch.where(m[:, None], xf, torch.zeros_like(xf))
             xe = xe.index_put((r, pos[s]), contrib, accumulate=True)
+        if own:               # the ranks' rows are disjoint: the sum is xe
+            xe = _AllReduceShared.apply(xe, grp, xe.dtype)
 
         def ffn(xe, g_, u_, o_):
             h = F.silu(torch.bmm(xe, gather(g_, 1))) * torch.bmm(
@@ -297,12 +308,12 @@ def moe_ffn_sharded(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo, policy):
         else:
             ye = ffn(xe, wg, wu, wod)                 # (E_loc, C, D)
 
-        y = torch.zeros((n_loc, D), dtype=torch.float32, device=xb.device)
+        if own:                               # "data"'s feature partials
+            ye = _AllReduceShared.apply(ye, grp, torch.float32)
+        y = torch.zeros((n_own, D), dtype=torch.float32, device=xb.device)
         for s in range(k):
             part = ye[e_rel[s], pos[s]].float()
             y = y + part * (gates[:, s] * mine[s])[:, None]
-        if own:                               # "data"'s feature partials
-            y = _ReduceScatter.apply(y, grp)
         for a in psum_axes:                   # experts + feature partials
             y = _AllReduce.apply(y, policy.group(a))
 

@@ -22,6 +22,10 @@ read their JSON:
 - ``place`` with a placed DTensor, ``_wsc``'s constraint on the
   gradient (mamba2's gate gradient product split over the model axis),
   and ``flops_by_op``;
+- each rank's own tokens, read from a ``CostMode`` subclass that records
+  every storage a traced step makes: granite's lookup at data 2 makes the
+  rank's (B/dp, T, D) rows, and arctic's stationary MoE prefill holds no
+  row of D for every token of "data";
 - granite-3-8b ``decode_32k`` at full width on the fake (16, 16) world,
   through ``python -m repro_torch.launch.dryrun``, then the roofline CLI
   on its record.
@@ -167,6 +171,50 @@ _PORT = textwrap.dedent("""
     mpol = D.cell_policy(mcfg, mshape, mesh, 16e9)
     out["mamba_ops"] = list(D.trace_step(mcfg, mshape, mpol,
                                          dev)["flops_by_op"])
+
+    # each rank's own tokens: every storage a step makes, as (the op that
+    # made it, its local shape)
+    counting = D.CostMode
+
+    class Held(counting):
+        made = []
+        op = "input"
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            outer, self.op = self.op, getattr(func, "__name__", str(func))
+            try:
+                return super().__torch_dispatch__(func, types, args, kwargs)
+            finally:
+                self.op = outer
+
+        def hold(self, tensors):
+            tensors = list(tensors)
+            Held.made += [(self.op, list(D._local(t).shape))
+                          for t in tensors]
+            super().hold(tensors)
+
+    D.CostMode = Held
+    # granite's lookups at data 2, in a train and a prefill step
+    for kind, shape in (("train", D.C.Shape("t", 32, 8, "train")),
+                        ("prefill", D.C.Shape("p", 32, 8, "prefill"))):
+        pol = D.cell_policy(cfg, shape, mesh, 16e9)
+        Held.made = []
+        D.trace_step(cfg, shape, pol, dev)
+        out[f"embed|{kind}"] = {
+            "dp": list(pol.dp), "lookups": [
+                s for op, s in Held.made
+                if op.split(".")[0] in ("embedding", "index")
+                and s[-1] == cfg.d_model]}
+    # arctic's stationary MoE prefill at data 2 (the 1-byte budget makes
+    # the weights stationary)
+    acfg = get_config("arctic-480b", smoke=True)
+    ashape = D.C.Shape("p", 64, 4, "prefill")
+    apol = D.cell_policy(acfg, ashape, mesh, 1.0)
+    Held.made = []
+    D.trace_step(acfg, ashape, apol, dev)
+    out["moe_held"] = {"stationary": apol.weight_stationary,
+                       "dp": list(apol.dp), "shapes": Held.made}
+    D.CostMode = counting
 
     # the unsharded step against the four ranks' shards
     for kind, shape in (("decode", D.C.Shape("d", 512, 8, "decode")),
@@ -420,6 +468,37 @@ def test_flops_by_op_add_up_to_the_flops(children):
             rec["flops"], rel=1e-12), rec["arch"]
     assert _result(children, "rule")["product"]["flops_by_op"] == {
         "mm 32x32 @ 32x8": 2 * 32 * 32 * 8}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_each_rank_embeds_only_its_own_tokens(children, kind):
+    """granite-3-8b smoke at data 2 (batch 8, sequence 32; a train step
+    in 4 microbatches): the lookup makes the rank's (B/dp, T, D) rows,
+    not the whole batch's."""
+    got = _result(children, "rule")[f"embed|{kind}"]
+    assert got["dp"] == ["data"]
+    B = 8 // (D.MICROBATCH if kind == "train" else 1)
+    d = C.get_config("granite-3-8b", smoke=True).d_model
+    assert got["lookups"] and all(
+        s == [B // 2, 32, d] for s in got["lookups"]), got["lookups"]
+
+
+def test_stationary_moe_holds_no_gathered_tokens(children):
+    """arctic-480b smoke's prefill with stationary weights at data 2
+    (batch 4 x 64: 128 tokens a rank, 256 over "data"): only the expert
+    ids cross "data" whole; no storage the step makes holds a row of D
+    for each of the 256 tokens (the gathered tokens, their dispatch or
+    their float32 combine).  The step's inputs are not its to make (the
+    table's shard is 256 x 64 too)."""
+    got = _result(children, "rule")["moe_held"]
+    assert got["stationary"] and got["dp"] == ["data"]
+    n_all, d = 4 * 64, C.get_config("arctic-480b", smoke=True).d_model
+    held = [(op, s) for op, s in got["shapes"] if op != "input"
+            and s and s[0] == n_all and np.prod(s) >= n_all * d]
+    assert not held, held
+    # the rank's own tokens do pass through the experts
+    assert any(s[:1] == [n_all // 2] and s[-1] == d
+               for _, s in got["shapes"])
 
 
 @pytest.mark.parametrize("kind", ["decode", "prefill", "train"])

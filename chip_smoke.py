@@ -162,7 +162,13 @@ Phases (any failure exits non-zero; nothing is caught):
    65536 tokens.  Each rank embeds and combines only its own tokens:
    granite-3-8b's prefill_32k holds at most PREFILL_TMP_MAX temporary
    bytes a rank, and the one-layer arctic-480b prefill peaks at most at
-   ARCTIC_FULL_PEAK_MAX a rank; both readings are printed.  Then the work
+   ARCTIC_FULL_PEAK_MAX a rank; both readings are printed.  A composed
+   peak is the deep step's own: granite-3-8b's train_4k peak composed
+   from its 2- and 3-group probes is within PEAK_TOL of
+   GRANITE_TRAIN_PEAK, a trace of the whole step, and a one-device
+   reproduction (granite-3-8b's smoke config widened, PEAK_DEEP groups,
+   whose probes peak elsewhere than the deep step) composes every region
+   to the traced one; each record's ``peak_from`` is printed.  Then the work
    of phase 11b's decode step and phase 12's train
    step, counted in one fake pass each on one rank, held against the
    times those phases measured: the measured step is no shorter than the
@@ -3142,6 +3148,19 @@ SSM_CELLS = ("mamba2-2.7b", "jamba-1.5-large")
 # gathered tokens and their float32 combine made 150.3 GB)
 PREFILL_TMP_MAX = 4e9
 ARCTIC_FULL_PEAK_MAX = 30e9
+# a composed peak is the deep step's own: granite-3-8b's train_4k (1-pod)
+# composed from its 2- and 3-group probes reads within PEAK_TOL of this
+# peak a rank, read once from a trace of the whole 40-layer step on the
+# card's host (python -m repro_torch.launch.dryrun --multi-pod single
+# --arch granite-3-8b --shape train_4k --whole; torch 2.11.0+cu128, an
+# H100 80GB HBM3); a line through the probes' peaks read 16.31 GB
+GRANITE_TRAIN_PEAK = 20_330_545_172
+PEAK_TOL = 0.01
+# the one-device reproduction of a composed peak that missed the deep
+# step's: granite-3-8b's smoke config widened (d 512, F 2048, 8 query and
+# KV heads, vocab 32768, remat) trains 16 x 256 at PEAK_DEEP groups; its
+# probes peak on one AdamW leaf, the deep step on another
+PEAK_DEEP = 24
 
 
 def layout_case(name: str):
@@ -3328,6 +3347,72 @@ def ssm_checks(arch: str, rec: dict) -> str:
                 f"{k} {v:.4g}" for k, v in want.items()))
 
 
+def peak_child(spec_path: str) -> int:
+    """Phase 14a's reproduction: the widened granite smoke step traced on
+    fake tensors on the card at 2, 3 and PEAK_DEEP groups, one rank (no
+    process group); writes the composed and traced peaks, whether every
+    region composes to the traced one, the card's peak allocation and the
+    kernel launches of this process."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as D
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    cfg = dataclasses.replace(
+        get_config("granite-3-8b", smoke=True), remat=True, d_model=512,
+        d_ff=2048, num_heads=8, kv_heads=8, vocab=32768)
+    shape = D.C.Shape("t", 256, 16, "train")
+    t = time.perf_counter()
+    two, three, whole = (
+        D.trace_step(D.at_groups(cfg, g), shape, None, torch.device("cuda"))
+        for g in (*D.PROBE_GROUPS, PEAK_DEEP))
+    out = {"trace_s": time.perf_counter() - t,
+           "probes": [r["peak_bytes_per_dev"] for r in (two, three)],
+           "probe_regions": [r["peak_region"] for r in (two, three)],
+           "whole": {k: whole[k] for k in ("peak_bytes_per_dev",
+                                            "tmp_bytes_per_dev",
+                                            "peak_region")},
+           "n_regions": len(whole["regions"])}
+    try:
+        rec = D.compose(two, three, PEAK_DEEP)
+        out["composed"] = {k: rec[k] for k in out["whole"]}
+        traced = {tuple(k): v for k, v, _ in whole["regions"]}
+        out["regions_equal"] = D.compose_regions(two, three,
+                                                 PEAK_DEEP) == traced
+    except D.ProbesDoNotFit as e:  # reported and failed by the phase
+        out["error"] = f"the probes do not fit: {e}"
+    torch.cuda.synchronize()
+    out["max_allocated"] = torch.cuda.max_memory_allocated()
+    out["launches"] = dict(build.LAUNCHES)
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def peak_checks(c: dict) -> str:
+    """Phase 14's checks of the reproduction; returns its log line."""
+    check("error" not in c, f"phase 14 peak reproduction: {c.get('error')}")
+    check(c["max_allocated"] <= DRYRUN_MAX_ALLOCATED
+          and not any(c["launches"].values()),
+          f"phase 14 peak reproduction: {c['max_allocated']} bytes "
+          f"allocated, launches {c['launches']}")
+    check(c["composed"] == c["whole"] and c["regions_equal"],
+          f"phase 14 peak reproduction at {PEAK_DEEP} groups: composed "
+          f"{c['composed']}, traced {c['whole']}, every region composed "
+          f"{c['regions_equal']}")
+    two, three = c["probes"]
+    line = two + (PEAK_DEEP - 2) * (three - two)
+    return (f"peak reproduction: ok, traced in {c['trace_s']:.1f} s; "
+            f"{PEAK_DEEP} groups composed "
+            f"{c['composed']['peak_bytes_per_dev']} bytes = traced "
+            f"({c['whole']['peak_region']}; the probes' "
+            f"{c['probe_regions'][0]} / {c['probe_regions'][1]}, their "
+            f"line {line}); all {c['n_regions']} regions composed")
+
+
 def dryrun_child(spec_path: str) -> int:
     """One cell of phase 14a: ``launch.dryrun.run_cell`` on a fake world
     of 256 or 512 ranks, fake tensors on the card, the policy made for the
@@ -3357,9 +3442,9 @@ def dryrun_child(spec_path: str) -> int:
 
 
 def dryrun_cells(hbm_bytes: float, timeout: float = 600):
-    """14a: the DRYRUN_CELLS, LAYOUT_CASES and SSM_CELLS children,
-    started together; returns (cells' results, layout cases' results,
-    SSM cells' results)."""
+    """14a: the DRYRUN_CELLS, LAYOUT_CASES and SSM_CELLS children and the
+    peak reproduction, started together; returns (cells' results, layout
+    cases' results, SSM cells' results, the reproduction's result)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
     jobs = [("--dryrun-child", {"mesh": mesh, "shape": shape,
                                 "hbm_bytes": hbm_bytes})
@@ -3369,6 +3454,7 @@ def dryrun_cells(hbm_bytes: float, timeout: float = 600):
                                  "shape": "long_500k",
                                  "hbm_bytes": hbm_bytes})
              for a in SSM_CELLS]
+    jobs += [("--peak-child", {})]
     procs = []
     try:
         for i, (flag, spec) in enumerate(jobs):
@@ -3390,7 +3476,7 @@ def dryrun_cells(hbm_bytes: float, timeout: float = 600):
                   f"{p.returncode}:\n{tail}")
             outs.append(json.loads((tmp / f"out{i}.json").read_text()))
         n, m = len(DRYRUN_CELLS), len(DRYRUN_CELLS) + len(LAYOUT_CASES)
-        return outs[:n], outs[n:m], outs[m:]
+        return outs[:n], outs[n:m], outs[m:-1], outs[-1]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3405,7 +3491,8 @@ def _roofline_row(costs: dict, measured_ms: float, model_flops: float):
     t = roofline_terms(costs["flops"], costs["bytes"],
                        costs["collective_bytes"])
     return {"flops": costs["flops"], "bytes": costs["bytes"],
-            "peak_gb": costs["peak_bytes_per_dev"] / 1e9, **t,
+            "peak_gb": costs["peak_bytes_per_dev"] / 1e9,
+            "peak_from": costs.get("peak_from", "whole"), **t,
             "measured_ms": measured_ms,
             "t_compute_ms": t["t_compute_s"] * 1e3,
             "t_memory_ms": t["t_memory_s"] * 1e3,
@@ -3463,7 +3550,7 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
 
     hbm = float(torch.cuda.get_device_properties(0).total_memory)
     build.reset_launches()                        # the phase starts
-    cells, layouts, ssm = dryrun_cells(hbm)
+    cells, layouts, ssm, peak = dryrun_cells(hbm)
     steps = roofline_steps(dev, decode_ms, train_ms)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)               # the phase ends
@@ -3480,11 +3567,17 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
               "allocated on the card")
         check(all(v == 0 for v in c["launches"].values()),
               f"phase 14 {shape} {mesh}: launches {c['launches']}")
-        tmp = rec["tmp_bytes_per_dev"]
+        tmp, peak_b = rec["tmp_bytes_per_dev"], rec["peak_bytes_per_dev"]
         if (mesh, shape) == ("single", "prefill_32k"):
             check(tmp <= PREFILL_TMP_MAX, f"phase 14 {shape} {mesh}: "
                   f"{tmp / 1e9:.2f} GB of temporaries a rank, more than "
                   f"{PREFILL_TMP_MAX / 1e9:.0f}")
+        if (mesh, shape) == ("single", "train_4k"):
+            check(abs(peak_b - GRANITE_TRAIN_PEAK)
+                  <= PEAK_TOL * GRANITE_TRAIN_PEAK,
+                  f"phase 14 {shape} {mesh}: peak {peak_b / 1e9:.3f} GB "
+                  f"({rec['peak_from']}), the whole step's "
+                  f"{GRANITE_TRAIN_PEAK / 1e9:.3f}")
         rec.pop("trace", None)
         out["cells"].append({**rec, "max_allocated": c["max_allocated"],
                              "launches": c["launches"]})
@@ -3493,8 +3586,8 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
             f"{rec['bytes']:.4g} bytes, collectives "
             f"{json.dumps(rec['collective_bytes_by_kind'])} bytes "
             f"({json.dumps(rec['collective_counts'])}), peak "
-            f"{rec['peak_bytes_per_dev'] / 1e9:.2f} GB of "
-            f"{hbm / 1e9:.2f} (temporaries {tmp / 1e9:.2f}); tp "
+            f"{peak_b / 1e9:.2f} GB of {hbm / 1e9:.2f} ({rec['peak_from']}, "
+            f"{rec['peak_region']}; temporaries {tmp / 1e9:.2f}); tp "
             f"{rec['tp']} fsdp {rec['fsdp']}; card "
             f"allocated {c['max_allocated']} bytes")
     out["layout"] = layouts
@@ -3508,17 +3601,21 @@ def dryrun_phase(dev, decode_ms: float, train_ms: float) -> dict:
               and not any(c["launches"].values()),
               f"phase 14 {arch} long_500k: {c['max_allocated']} bytes "
               f"allocated, launches {c['launches']}")
-        log("  layout " + ssm_checks(arch, c["rec"]))
+        log("  layout " + ssm_checks(arch, c["rec"]) + " (peak "
+            f"{c['rec']['peak_from']})")
         rec = {k: v for k, v in c["rec"].items()
                if k not in ("trace", "flops_by_op")}
         out["ssm"].append({"arch": arch, **rec})
+    log("  " + peak_checks(peak))
+    out["peak_reproduction"] = peak
     for name, r in steps.items():
         log(f"  roofline {name}: measured {r['measured_ms']:.3f} ms; "
             f"T_comp {r['t_compute_ms']:.3f} ms ({r['compute_share']:.4f} "
             f"of it), T_mem {r['t_memory_ms']:.3f} ms "
             f"({r['memory_share']:.4f}), T_coll "
             f"{r['t_collective_s'] * 1e3:.3f} ms; {r['flops']:.4g} FLOPs, "
-            f"{r['bytes']:.4g} bytes, peak {r['peak_gb']:.2f} GB; "
+            f"{r['bytes']:.4g} bytes, peak {r['peak_gb']:.2f} GB "
+            f"({r['peak_from']}); "
             f"dominant {r['dominant']}; useful {r['useful_ratio']:.4f}")
     return out
 
@@ -3848,6 +3945,7 @@ def main(argv) -> int:
     ap.add_argument("--sharded-child", help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-child", help=argparse.SUPPRESS)
     ap.add_argument("--layout-child", help=argparse.SUPPRESS)
+    ap.add_argument("--peak-child", help=argparse.SUPPRESS)
     # phase 13 alone (after the build and phase 11a, whose logits it is
     # held to); on a machine with 4 cards, its world of 4 on NCCL alone.
     # Prints no kernel line
@@ -3874,6 +3972,8 @@ def main(argv) -> int:
         return dryrun_child(args.dryrun_child)
     if args.layout_child is not None:
         return layout_child(args.layout_child)
+    if args.peak_child is not None:
+        return peak_child(args.peak_child)
     if args.only_sharded:
         return run_sharded_only()
     # the tuner's cache: a fresh file for this run only, so no cache left

@@ -15,7 +15,9 @@ A decode step, and any step of at most 3 layer groups, is traced whole;
 a train or prefill step of more groups takes minutes to trace whole, so
 :func:`repro_torch.launch.dryrun.trace_cell` traces it at 2 and 3 groups
 and composes the full depth (``dryrun.compose``: each group adds the same
-ops; the tests hold the composed counts equal to a traced 4-group step).
+ops, so the counts are lines in the depth; the peak is composed region
+by region, or the step is traced whole where the probes do not fit that
+rule; ``peak_from`` says which).
 A cell found in ``--dryrun``'s records (written by ``launch.dryrun``) is
 not traced again.
 
@@ -104,6 +106,7 @@ def analyze_cell(arch: str, shape_name: str, mesh, chips: int,
         "useful_ratio": mf / max(flops * chips, 1.0),
         "tp": tuple(dry_rec["tp"]),
         "peak_bytes_per_dev": dry_rec["peak_bytes_per_dev"],
+        "peak_from": dry_rec.get("peak_from"),
         "hbm_bytes": hbm_bytes,
         "fits_hbm": dry_rec["peak_bytes_per_dev"] < hbm_bytes,
     }

@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import EngineSpec, make_engine
 from repro_torch.core.params import CipherParams, get_params
 from repro_torch.core.producer import (
@@ -331,7 +332,8 @@ class CipherBatch:
         """Device-side per-session producer material, rebuilt lazily on
         growth or rotation."""
         if self._tables is None:
-            self._tables = self.producer.stack_tables(self._mat_host)
+            with obs.span("cipher.tables"):
+                self._tables = self.producer.stack_tables(self._mat_host)
         return self._tables
 
     # ---------------- producer / consumer ---------------------------------

@@ -25,6 +25,7 @@ from typing import Any, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cipher import (
     CipherBatch,
     decrypt_fixed,
@@ -183,22 +184,23 @@ class KeystreamFarm:
 
     # ------------------------------------------------------------------
     def _dispatch(self, plan: WindowPlan, plane: str) -> _Produced:
-        tables = self.batch.xof_tables()
-        if self._stream is None:
-            return _Produced(self.batch.producer.produce(
-                tables, plan.session_ids, plan.block_ctrs, plane), None)
-        if tables is not self._synced_tables:
-            # fresh session tables were uploaded on the caller's stream
-            self._stream.wait_stream(torch.cuda.current_stream())
-            self._synced_tables = tables
-        with torch.cuda.stream(self._stream):
-            for t in tables.device:
-                t.record_stream(self._stream)
-            consts = self.batch.producer.produce(
-                tables, plan.session_ids, plan.block_ctrs, plane)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return _Produced(consts, event)
+        with obs.span("farm.produce"):
+            tables = self.batch.xof_tables()
+            if self._stream is None:
+                return _Produced(self.batch.producer.produce(
+                    tables, plan.session_ids, plan.block_ctrs, plane), None)
+            if tables is not self._synced_tables:
+                # fresh session tables were uploaded on the caller's stream
+                self._stream.wait_stream(torch.cuda.current_stream())
+                self._synced_tables = tables
+            with torch.cuda.stream(self._stream):
+                for t in tables.device:
+                    t.record_stream(self._stream)
+                consts = self.batch.producer.produce(
+                    tables, plan.session_ids, plan.block_ctrs, plane)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            return _Produced(consts, event)
 
     def produce(self, plan: WindowPlan, plane: str = "all") -> _Produced:
         """Dispatch the producer for one window (on the side stream on a
@@ -212,9 +214,10 @@ class KeystreamFarm:
     def consume(self, constants):
         """Run the engine on produced constants (a `produce` result or a
         plain constants dict)."""
-        if isinstance(constants, _Produced):
-            constants = constants.ready()
-        return self.engine(constants)
+        with obs.span("farm.consume"):
+            if isinstance(constants, _Produced):
+                constants = constants.ready()
+            return self.engine(constants)
 
     # ------------------------------------------------------------------
     def pipeline(self) -> "FarmPipeline":
@@ -261,7 +264,9 @@ class KeystreamFarm:
         """Iterable of (WindowPlan, (lanes, l) float) -> (plan, ciphertext)."""
         mod = self.batch.params.mod
         for plan, m, z in self._payload_stream(plans_and_msgs):
-            yield plan, encrypt_fixed(mod, m, z, delta)
+            with obs.span("farm.encrypt"):
+                ct = encrypt_fixed(mod, m, z, delta)
+            yield plan, ct
 
     def decrypt_stream(self, plans_and_cts, delta: float = 1024.0):
         """Iterable of (WindowPlan, (lanes, l) ints) -> (plan, float32)."""

@@ -43,6 +43,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Type, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.params import CipherParams
 from repro_torch.crypto.aes import aes128_key_expand
 from repro_torch.crypto.sampler import (
@@ -79,12 +80,14 @@ def constants_from_words(params: CipherParams, words,
     w_u = words_needed_uniform_stream(n_u)
     out: Dict[str, Any] = {}
     if plane in ("all", "vector"):
-        out["rc"] = uniform_mod_q_stream(words[..., :w_u], n_u, p.mod)
+        with obs.span("producer.uniform", stream=words):
+            out["rc"] = uniform_mod_q_stream(words[..., :w_u], n_u, p.mod)
         noise = None
         if p.n_noise:
             hi = words[..., w_u : w_u + p.n_noise]
             lo = words[..., w_u + p.n_noise : w_u + 2 * p.n_noise]
-            noise = discrete_gaussian(hi, lo, gauss)
+            with obs.span("producer.gauss", stream=words):
+                noise = discrete_gaussian(hi, lo, gauss)
         out["noise"] = noise
     if plane in ("all", "matrix"):
         mats = None
@@ -92,8 +95,9 @@ def constants_from_words(params: CipherParams, words,
             base = w_u + 2 * p.n_noise
             n_m = p.n_matrix_constants
             w_m = words_needed_uniform_stream(n_m)
-            mats = uniform_mod_q_stream(words[..., base : base + w_m],
-                                        n_m, p.mod)
+            with obs.span("producer.uniform", stream=words):
+                mats = uniform_mod_q_stream(words[..., base : base + w_m],
+                                            n_m, p.mod)
         out["mats"] = mats
     return out
 
@@ -174,16 +178,18 @@ class ConstantsProducer:
         return self.total_words
 
     def _lane_arrays(self, tables: ProducerTables, session_ids, block_ctrs):
-        sid = np.asarray(session_ids.cpu() if torch.is_tensor(session_ids)
-                         else session_ids, np.int64).reshape(-1)
-        ctr = np.asarray(block_ctrs.cpu() if torch.is_tensor(block_ctrs)
-                         else block_ctrs, np.int64).reshape(-1)
-        if sid.shape != ctr.shape:
-            raise ValueError("session_ids / block_ctrs length mismatch")
-        if sid.size and (sid.min() < 0 or sid.max() >= len(tables.nonces)):
-            raise IndexError(
-                f"session id out of range for {len(tables.nonces)} sessions")
-        return upload(sid, self.device), upload(ctr, self.device)
+        with obs.span("producer.upload"):
+            sid = np.asarray(session_ids.cpu() if torch.is_tensor(session_ids)
+                             else session_ids, np.int64).reshape(-1)
+            ctr = np.asarray(block_ctrs.cpu() if torch.is_tensor(block_ctrs)
+                             else block_ctrs, np.int64).reshape(-1)
+            if sid.shape != ctr.shape:
+                raise ValueError("session_ids / block_ctrs length mismatch")
+            if sid.size and (sid.min() < 0
+                             or sid.max() >= len(tables.nonces)):
+                raise IndexError(f"session id out of range for "
+                                 f"{len(tables.nonces)} sessions")
+            return upload(sid, self.device), upload(ctr, self.device)
 
     def produce(self, tables: ProducerTables, session_ids, block_ctrs,
                 plane: str = "all"):
@@ -331,9 +337,10 @@ class AesProducer(ConstantsProducer):
     def produce(self, tables, session_ids, block_ctrs, plane: str = "all"):
         rk, n12 = tables.device
         sid, ctr = self._lane_arrays(tables, session_ids, block_ctrs)
-        words = aes_xof_words(rk, n12, sid, ctr, self.plane_words(plane))
-        return constants_from_words(self.params, from_u32_bits(words),
-                                    self._gauss, plane)
+        with obs.span("producer.xof", stream=self.device):
+            words = from_u32_bits(aes_xof_words(rk, n12, sid, ctr,
+                                                self.plane_words(plane)))
+        return constants_from_words(self.params, words, self._gauss, plane)
 
 
 @register_producer
@@ -363,8 +370,9 @@ class ThreefryProducer(ConstantsProducer):
     def produce(self, tables, session_ids, block_ctrs, plane: str = "all"):
         (roots,) = tables.device
         sid, ctr = self._lane_arrays(tables, session_ids, block_ctrs)
-        words = threefry_xof_words_batched(roots[sid], ctr,
-                                           self.plane_words(plane))
+        with obs.span("producer.xof", stream=self.device):
+            words = threefry_xof_words_batched(roots[sid], ctr,
+                                               self.plane_words(plane))
         return constants_from_words(self.params, words, self._gauss, plane)
 
 

@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (any failure exits non-zero; nothing is caught):
 
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile the three CUDA sources (one ``nvcc`` each, in parallel)
+2. build: compile the four CUDA sources (one ``nvcc`` each, in parallel)
    into ``build/kernels/`` and print the build time and register/spill use;
 3. kernels against their plain PyTorch versions on the card, exactly, at
    lane counts that cut a lane group and a thread block (1, 31, 1000,
@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught):
    sessions), MRMC on every preset (v in {4, 6, 8}, one or two branches)
    on random states and on the edge values 0 and q-1, and the fused
    keystream for 7 presets x {normal, alternating} x {lazy, eager} x
-   noise, fed by the AES-kernel producer;
+   noise, fed by the AES-kernel producer; the producer's two sampler
+   kernels on int32 and int64 words of hera-128a, rubato-128l and
+   pasta-128l (its matrix plane too), then timed at the rubato bulk
+   cell's 140 032 lanes beside their plain versions and their bounds;
 4. the reference's 10 golden keystream digests through the kernel
    producer and the kernel engine;
 5. the main path: ``HHEServer`` at window 4096 with 64 sessions for
@@ -298,6 +301,10 @@ SOURCES = {
                 "src/repro/kernels/aes/aes.py:67"),
     "aes_ctr": ("src/repro_torch/csrc/aes.cu",
                 "src/repro/kernels/aes/aes.py:67"),
+    "sampler_uniform": ("src/repro_torch/csrc/sampler.cu",
+                        "none: src/repro/crypto/sampler.py:55 is plain jnp"),
+    "sampler_gauss": ("src/repro_torch/csrc/sampler.cu",
+                      "none: src/repro/crypto/sampler.py:111 is plain jnp"),
 }
 MAIN_PATH = ("keystream", "aes_xof")
 
@@ -407,7 +414,7 @@ def aes_bound(nbytes: float, blocks: int):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against plain versions
 # ---------------------------------------------------------------------------
-def check_kernels(dev, errors: Errors) -> None:
+def check_kernels(dev, errors: Errors) -> dict:
     import torch
 
     from repro_torch.core import schedule as S
@@ -499,6 +506,116 @@ def check_kernels(dev, errors: Errors) -> None:
         del k
     log(f"  keystream: {n_cases} cases (preset x variant x mode x noise x "
         f"lanes {CHECK_LANE_COUNTS}) exact")
+    return check_samplers(dev, errors)
+
+
+# the rubato bulk cell's window: 256 clients' 2^15-slot vectors
+SAMPLER_CELL = ("rubato-128l", 256 * 547)
+SAMPLER_SHAPES = (("hera-128a", "rc"), ("rubato-128l", "rc"),
+                  ("pasta-128l", "rc"), ("pasta-128l", "mats"))
+
+
+def _sampler_words(dev, lanes: int, n_words: int, seed: int, dtype):
+    """Random XOF words on the card: int32 bit patterns (the AES kernel's)
+    or int64 values (threefry's)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = torch.randint(-2**31, 2**31, (lanes, n_words), generator=g,
+                      device=dev, dtype=torch.int32)
+    return w if dtype == torch.int32 else w.to(torch.int64) & 0xFFFFFFFF
+
+
+def check_samplers(dev, errors: Errors) -> dict:
+    """The sampler kernels against their plain versions (int32 and int64
+    words, column slices of the XOF rows read in place, at
+    CHECK_LANE_COUNTS lanes); then both timed at the rubato bulk cell's
+    shape beside the plain versions (on words widened to int64, as the
+    plain path ran) and their bounds: the bytes (int32 words in, int64
+    planes out) or the INT32 instructions (uniform: mask, compare, vote a
+    word; Gaussian: two 32-bit compares and an add a threshold)."""
+    import torch
+
+    from repro_torch.core.params import get_params
+    from repro_torch.crypto import sampler as SMP
+    from repro_torch.kernels.build import from_u32_bits
+    from repro_torch.kernels.sampler.ops import (gauss_kernel_apply,
+                                                 uniform_kernel_apply)
+
+    top = max(CHECK_LANE_COUNTS)
+    def values(x):      # the plain versions' operand: int64 values
+        return from_u32_bits(x) if x.dtype == torch.int32 else x
+
+    for i, (name, plane) in enumerate(SAMPLER_SHAPES):
+        p = get_params(name)
+        n_out = p.n_round_constants if plane == "rc" else p.n_matrix_constants
+        w = SMP.words_needed_uniform_stream(n_out)
+        for dtype in (torch.int32, torch.int64):
+            words = _sampler_words(dev, top, w + 8, 30 + i, dtype)
+            for n in CHECK_LANE_COUNTS:
+                view = words[:n, 5:5 + w]
+                errors.same("sampler_uniform",
+                            uniform_kernel_apply(view, n_out, p.mod),
+                            SMP.uniform_mod_q_stream(values(view), n_out,
+                                                     p.mod),
+                            f"sampler_uniform {name} {plane} {dtype} "
+                            f"{n} lanes")
+            del words
+    name, lanes = SAMPLER_CELL
+    p = get_params(name)
+    table = SMP.DGaussTable.build(p.sigma)
+    n_rc, n_noise = p.n_round_constants, p.n_noise
+    w_u = SMP.words_needed_uniform_stream(n_rc)
+    for dtype in (torch.int32, torch.int64):
+        words = _sampler_words(dev, top, w_u + 2 * n_noise, 40, dtype)
+        for n in CHECK_LANE_COUNTS:
+            hi = words[:n, w_u:w_u + n_noise]
+            lo = words[:n, w_u + n_noise:]
+            errors.same("sampler_gauss", gauss_kernel_apply(hi, lo, table),
+                        SMP.discrete_gaussian(values(hi), values(lo), table),
+                        f"sampler_gauss {name} {dtype} {n} lanes")
+    log(f"  samplers: uniform on {len(SAMPLER_SHAPES)} streams, Gaussian at "
+        f"{name}, int32 and int64 words x {CHECK_LANE_COUNTS} lanes exact")
+
+    # the cell's window: the AES kernel's int32 rows, as the producer
+    # hands them over
+    words = _sampler_words(dev, lanes, p.xof_words_per_block(), 50,
+                           torch.int32)
+    wide = from_u32_bits(words)
+    u_in, u_wide = words[:, :w_u], wide[:, :w_u]
+    hi, lo = words[:, w_u:w_u + n_noise], words[:, w_u + n_noise:]
+    hi_w, lo_w = wide[:, w_u:w_u + n_noise], wide[:, w_u + n_noise:]
+    errors.same("sampler_uniform", uniform_kernel_apply(u_in, n_rc, p.mod),
+                SMP.uniform_mod_q_stream(u_wide, n_rc, p.mod),
+                f"sampler_uniform {name} at {lanes} lanes")
+    errors.same("sampler_gauss", gauss_kernel_apply(hi, lo, table),
+                SMP.discrete_gaussian(hi_w, lo_w, table),
+                f"sampler_gauss {name} at {lanes} lanes")
+    shape = f"{name}, {lanes} lanes"
+    u_ms, u_by, u_lim = bound(lanes * (4 * w_u + 8 * n_rc), 3 * lanes * w_u)
+    g_ms, g_by, g_lim = bound(lanes * n_noise * (8 + 8),
+                              3 * lanes * n_noise * 2 * table.tail)
+    rows = {
+        "sampler_uniform": {
+            "ms": graph_ms(lambda: uniform_kernel_apply(u_in, n_rc, p.mod),
+                           20),
+            "plain_ms": time_ms(
+                lambda: SMP.uniform_mod_q_stream(u_wide, n_rc, p.mod), 5),
+            "bound_ms": u_ms, "bound_by": u_by, "bound_limit": u_lim,
+            "shape": shape},
+        "sampler_gauss": {
+            "ms": graph_ms(lambda: gauss_kernel_apply(hi, lo, table), 20),
+            "plain_ms": time_ms(
+                lambda: SMP.discrete_gaussian(hi_w, lo_w, table), 5),
+            "bound_ms": g_ms, "bound_by": g_by, "bound_limit": g_lim,
+            "shape": shape},
+    }
+    rows["widen_ms"] = time_ms(lambda: from_u32_bits(words), 5)
+    del words, wide
+    torch.cuda.empty_cache()
+    log(json.dumps({"samplers": rows}))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3873,7 +3990,7 @@ def mrmc_bandwidth(times: dict) -> dict:
 
 
 def kernel_entries(rows: dict, times: dict, paths: dict, errors: Errors,
-                   with_baseline: bool) -> list:
+                   with_baseline: bool, samplers: dict) -> list:
     """The ``kernels`` JSON entries: each kernel's head-preset row from
     :func:`time_kernels`, its times from :func:`merge_times`, the launch
     counts of every main path (``paths``: name -> counts; the phase-5
@@ -3917,6 +4034,20 @@ def kernel_entries(rows: dict, times: dict, paths: dict, errors: Errors,
             "library_note": "no single PyTorch call computes this function",
             "ok": errors.max[name] == 0, "shape": r["shape"],
             **{k: r[k] for k in ("per_preset", "bandwidth") if k in r},
+        })
+    for name in ("sampler_uniform", "sampler_gauss"):
+        src, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {k: c[name] for k, c in paths.items()},
+            "on_main_path": paths["hhe_server"][name] > 0,
+            "max_abs_err": errors.max[name],
+            "prev_ms": None, "prev_note": "timed in phase 3 alone",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "ok": errors.max[name] == 0, **samplers[name],
         })
     return kernels
 
@@ -4043,7 +4174,7 @@ def run(args, cache: Path) -> int:
     errors = Errors()
     t = time.perf_counter()
     log("[3] kernels against their plain versions")
-    check_kernels(dev, errors)
+    samplers = check_kernels(dev, errors)
     phases["kernels_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -4206,7 +4337,7 @@ def run(args, cache: Path) -> int:
              "llm_sharded": launches_sharded_llm,
              "llm_sharded_train": launches_sharded_train}
     kernels = kernel_entries(rows, times, paths, errors,
-                             baseline is not None)
+                             baseline is not None, samplers)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

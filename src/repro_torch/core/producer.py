@@ -19,7 +19,9 @@ Registered producers (`registered_producers()` / `producer_caps()`):
                    a repeated (session nonce, counter window, plane kind)
                    returns the memoized planes.
 
-The samplers are plain PyTorch.  ``ProducerCaps.stream`` names the XOF
+The samplers read the XOF's words as the XOF left them: on a CUDA device
+the sampler kernels (`kernels.sampler.ops`) run, on the CPU their plain
+versions (`crypto/sampler.py`).  ``ProducerCaps.stream`` names the XOF
 stream a producer emits; None follows ``params.xof`` (the wrapper).
 Producers whose stream matches ``params.xof`` are interchangeable without
 changing a keystream bit (`compatible_producers`).
@@ -48,8 +50,6 @@ from repro_torch.core.params import CipherParams
 from repro_torch.crypto.aes import aes128_key_expand
 from repro_torch.crypto.sampler import (
     DGaussTable,
-    discrete_gaussian,
-    uniform_mod_q_stream,
     words_needed_uniform_stream,
 )
 from repro_torch.crypto.xof import (
@@ -58,7 +58,10 @@ from repro_torch.crypto.xof import (
 )
 from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.aes.ops import aes_xof_words
-from repro_torch.kernels.build import from_u32_bits
+from repro_torch.kernels.sampler.ops import (
+    gauss_kernel_apply,
+    uniform_kernel_apply,
+)
 
 #: Constants-plane kinds a producer can materialize independently.
 PLANES = ("all", "vector", "matrix")
@@ -68,10 +71,12 @@ def constants_from_words(params: CipherParams, words,
                          gauss: Optional[DGaussTable], plane: str = "all"):
     """Shared producer tail: XOF words -> dict(rc=..., noise=..., mats=...).
 
-    words: (..., total) int64 word values.  The word layout is fixed: rc
-    words first, then noise hi, noise lo, then matrix-plane words — the
-    matrix plane draws strictly after the vector plane from the same
-    stream, so presets without matrices are unaffected by it.
+    words: (..., total) XOF words as the XOF left them: int32 bit patterns
+    (the AES kernel's) or int64 values (threefry's); the samplers read
+    either without a widening copy.  The word layout is fixed: rc words
+    first, then noise hi, noise lo, then matrix-plane words — the matrix
+    plane draws strictly after the vector plane from the same stream, so
+    presets without matrices are unaffected by it.
     """
     if plane not in PLANES:
         raise ValueError(f"unknown constants plane {plane!r}; have {PLANES}")
@@ -81,13 +86,13 @@ def constants_from_words(params: CipherParams, words,
     out: Dict[str, Any] = {}
     if plane in ("all", "vector"):
         with obs.span("producer.uniform", stream=words):
-            out["rc"] = uniform_mod_q_stream(words[..., :w_u], n_u, p.mod)
+            out["rc"] = uniform_kernel_apply(words[..., :w_u], n_u, p.mod)
         noise = None
         if p.n_noise:
             hi = words[..., w_u : w_u + p.n_noise]
             lo = words[..., w_u + p.n_noise : w_u + 2 * p.n_noise]
             with obs.span("producer.gauss", stream=words):
-                noise = discrete_gaussian(hi, lo, gauss)
+                noise = gauss_kernel_apply(hi, lo, gauss)
         out["noise"] = noise
     if plane in ("all", "matrix"):
         mats = None
@@ -96,7 +101,7 @@ def constants_from_words(params: CipherParams, words,
             n_m = p.n_matrix_constants
             w_m = words_needed_uniform_stream(n_m)
             with obs.span("producer.uniform", stream=words):
-                mats = uniform_mod_q_stream(words[..., base : base + w_m],
+                mats = uniform_kernel_apply(words[..., base : base + w_m],
                                             n_m, p.mod)
         out["mats"] = mats
     return out
@@ -338,8 +343,7 @@ class AesProducer(ConstantsProducer):
         rk, n12 = tables.device
         sid, ctr = self._lane_arrays(tables, session_ids, block_ctrs)
         with obs.span("producer.xof", stream=self.device):
-            words = from_u32_bits(aes_xof_words(rk, n12, sid, ctr,
-                                                self.plane_words(plane)))
+            words = aes_xof_words(rk, n12, sid, ctr, self.plane_words(plane))
         return constants_from_words(self.params, words, self._gauss, plane)
 
 

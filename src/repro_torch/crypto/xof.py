@@ -17,8 +17,8 @@ The port's copy of `repro.crypto.xof`.  Two streams:
     ``bits1 ^ bits2`` of threefry2x32(key; hi = 0, lo = i).
 
 AES words travel as int32 tensors holding the uint32 bit patterns, the
-type the CUDA AES kernel writes (`kernels.build.from_u32_bits` widens
-them); the producer runs the kernel through
+type the CUDA AES kernel writes and the sampler kernels read
+(`kernels.build.from_u32_bits` widens them); the producer runs the kernel through
 `repro_torch.kernels.aes.ops.aes_xof_words`, and the functions here are
 its plain PyTorch version.  Threefry words are int64 tensors of the
 uint32 values.  The reference computes threefry in XLA, outside any Pallas

@@ -3,7 +3,8 @@ spots the paper accelerates, with the names `repro.kernels` exports.
 
 Each kernel directory has ``ops.py`` (the wrapper: operand checks,
 launch, launch count; CPU tensors take the plain version) and ``ref.py``
-(the plain PyTorch version the kernel is held against).  Importing builds
+(the plain PyTorch version the kernel is held against; the sampler
+kernels' plain versions are `crypto/sampler.py`'s).  Importing builds
 no kernel and touches no device: `kernels/build.py` compiles the sources
 at the first launch.
 """

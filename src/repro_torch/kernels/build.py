@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (one shared library, ctypes).
 
-The three sources under ``repro_torch/csrc`` have a plain C interface and
+The four sources under ``repro_torch/csrc`` have a plain C interface and
 no PyTorch headers, so ``nvcc`` builds them in seconds.  The library is
 built at first use into ``<checkout>/build/kernels/``, named by a content
 hash of the sources and flags, so an edited source rebuilds and an
@@ -29,13 +29,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("aes.cu", "mrmc.cu", "keystream.cu")
+SOURCES = ("aes.cu", "mrmc.cu", "keystream.cu", "sampler.cu")
 HEADERS = ("mrmc.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.
-LAUNCHES = {"aes_ctr": 0, "aes_xof": 0, "mrmc": 0, "keystream": 0}
+LAUNCHES = {"aes_ctr": 0, "aes_xof": 0, "mrmc": 0, "keystream": 0,
+            "sampler_uniform": 0, "sampler_gauss": 0}
 #: The same launches by the name of the thread that made them.
 THREAD_LAUNCHES: dict = {}
 _launch_lock = threading.Lock()
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "repro_mrmc": [_I, _P, _P, _I, _U32, _U64, _P],
     "repro_keystream": [_I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _I,
                         _I, _U32, _U64, _P],
+    "repro_sampler_uniform": [_P, _I, _I, _I, _I, _I, _U32, _U32, _P, _P],
+    "repro_sampler_gauss": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -40,6 +40,11 @@ from repro_torch.kernels.mrmc.ops import (  # noqa: E402
     mrmc_kernel_apply,
 )
 from repro_torch.kernels.mrmc.ref import mrmc_ref  # noqa: E402
+from repro_torch.crypto import sampler as SMP  # noqa: E402
+from repro_torch.kernels.sampler.ops import (  # noqa: E402
+    gauss_kernel_apply,
+    uniform_kernel_apply,
+)
 from repro_torch.serve.hhe_loop import HHERequest, HHEServer  # noqa: E402
 
 PRESETS = sorted(REGISTRY)
@@ -126,6 +131,149 @@ def test_aes_xof_kernel_matches_plain(cuda, n_words):
         ctr = torch.as_tensor(rng.integers(0, 2**16, lanes), device=cuda)
         _exact(aes_xof_words(rk, n12, sid, ctr, n_words),
                aes_xof_ref(rk, n12, sid, ctr, n_words))
+
+
+# the sampler kernels: one warp a row (8 rows a thread block) and one
+# thread a draw (256 a thread block); 1003 cuts both
+SAMPLER_LANES = (1, 31, 1003)
+SAMPLER_SHAPES = [("hera-128a", "rc"), ("rubato-128l", "rc"),
+                  ("pasta-128l", "rc"), ("pasta-128l", "mats")]
+SAMPLER_KINDS = ("random", "scattered", "all_rejected", "fallback", "high")
+
+
+def _stream_words(name, plane, kind, lanes, seed):
+    """(lanes, w) uint64 words of one sampler stream: random, or built to
+    hit an edge of the compaction (the CPU tests' cases)."""
+    p = get_params(name)
+    n_out = p.n_round_constants if plane == "rc" else p.n_matrix_constants
+    w = SMP.words_needed_uniform_stream(n_out)
+    words = np.random.default_rng(seed).integers(0, 2**32, (lanes, w),
+                                                 dtype=np.uint64)
+    rejected = np.uint64(2**32 - 1)          # low `bits` bits >= q
+    pad = SMP.STREAM_PAD
+    if kind == "scattered":
+        words[:, 3:w - pad:max(1, w // 12)] = rejected
+    elif kind == "all_rejected":
+        words[:] = rejected
+    elif kind == "fallback":
+        words[:, :5] = rejected
+        words[:, -pad - 1:] = rejected
+        words[0, 40:60] = rejected
+    elif kind == "high":
+        words |= np.uint64(2**31)
+    return p, n_out, words
+
+
+def _in_xof_rows(words, dtype, device, offset=5):
+    """The words as a column slice of wider XOF rows, as the producer
+    hands them over: int32 bit patterns (AES) or int64 values
+    (threefry)."""
+    lanes, w = words.shape
+    full = np.zeros((lanes, w + offset + 3), np.uint64)
+    full[:, offset:offset + w] = words
+    if dtype == torch.int32:
+        t = torch.as_tensor(full.astype(np.uint32).view(np.int32))
+    else:
+        t = torch.as_tensor(full.astype(np.int64))
+    return t.to(device)[:, offset:offset + w]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", SAMPLER_KINDS)
+@pytest.mark.parametrize("name,plane", SAMPLER_SHAPES)
+def test_sampler_uniform_kernel_matches_plain(cuda, name, plane, kind,
+                                              dtype):
+    """Word for word against `uniform_mod_q_stream` on the card, the
+    words read in place from a slice of the XOF rows."""
+    for lanes in SAMPLER_LANES:
+        p, n_out, words = _stream_words(name, plane, kind, lanes, lanes)
+        view = _in_xof_rows(words, dtype, cuda)
+        before = build.LAUNCHES["sampler_uniform"]
+        got = uniform_kernel_apply(view, n_out, p.mod)
+        assert build.LAUNCHES["sampler_uniform"] == before + 1
+        assert got.dtype == torch.int64
+        want = SMP.uniform_mod_q_stream(
+            torch.as_tensor(words.astype(np.int64), device=cuda), n_out,
+            p.mod)
+        _exact(got, want)
+
+
+def _gauss_draws(table, lanes, n, seed):
+    """(lanes, n) uint64 (hi, lo) draws: random, then on each threshold,
+    one below it, and 0xFFFFFFFF in hi, lo or both."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 2**32, lanes * n, dtype=np.uint64)
+    lo = rng.integers(0, 2**32, lanes * n, dtype=np.uint64)
+    fixed = (table.hi.astype(np.uint64) << np.uint64(32)) \
+        | table.lo.astype(np.uint64)
+    edges = np.concatenate([fixed, fixed - np.uint64(1),
+                            np.array([2**64 - 1, 2**32 - 1,
+                                      (2**32 - 1) << 32, 0], np.uint64)])
+    k = min(len(edges), hi.size)
+    hi[:k] = edges[:k] >> np.uint64(32)
+    lo[:k] = edges[:k] & np.uint64(0xFFFFFFFF)
+    return hi.reshape(lanes, n), lo.reshape(lanes, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", ["rubato-128s", "rubato-128l"])
+def test_sampler_gauss_kernel_matches_plain(cuda, name, dtype):
+    """Word for word against `discrete_gaussian` on the card, hi and lo
+    read in place from the XOF rows."""
+    p = get_params(name)
+    table = SMP.DGaussTable.build(p.sigma)
+    n = p.n_noise
+    for lanes in SAMPLER_LANES:
+        hi, lo = _gauss_draws(table, lanes, n, lanes)
+        rows = _in_xof_rows(np.concatenate([hi, lo], 1), dtype, cuda)
+        before = build.LAUNCHES["sampler_gauss"]
+        got = gauss_kernel_apply(rows[:, :n], rows[:, n:], table)
+        assert build.LAUNCHES["sampler_gauss"] == before + 1
+        assert got.dtype == torch.int64
+        want = SMP.discrete_gaussian(
+            torch.as_tensor(hi.astype(np.int64), device=cuda),
+            torch.as_tensor(lo.astype(np.int64), device=cuda), table)
+        _exact(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("producer", ["aes", "threefry"])
+@pytest.mark.parametrize("name", ["hera-128a", "rubato-128l", "pasta-128l"])
+def test_card_produce_launches_each_sampler_once(cuda, name, producer):
+    """One produce on the card: one launch of each sampler its planes
+    need (pasta's matrix plane a second uniform one), and the planes of
+    the CPU's plain samplers."""
+    import dataclasses
+
+    from repro_torch.core.producer import make_producer
+
+    p = dataclasses.replace(get_params(name), xof=producer)
+    rng = np.random.default_rng(9)
+    nonces = rng.integers(0, 256, (3, 16), dtype=np.uint8)
+    lanes = 37 if name == "pasta-128l" else 1003
+    sids = rng.integers(0, 3, lanes)
+    ctrs = rng.integers(0, 2**16, lanes)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prod = make_producer(None, p, device=dev)
+        tables = prod.stack_tables([prod.session_material(n)
+                                    for n in nonces])
+        build.reset_launches()
+        out[dev.type] = prod.produce(tables, sids, ctrs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["sampler_uniform"] == \
+                1 + bool(p.n_matrix_constants)
+            assert build.LAUNCHES["sampler_gauss"] == int(bool(p.n_noise))
+        else:
+            assert not any(build.LAUNCHES.values())
+    for k, v in out["cpu"].items():
+        if v is None:
+            assert out["cuda"][k] is None, k
+        else:
+            _exact(out["cuda"][k], v)
 
 
 @pytest.mark.gpu

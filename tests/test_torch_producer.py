@@ -284,3 +284,206 @@ def test_stream_sampler_compaction_and_fallback():
     want = RSMP.uniform_mod_q_stream(w.astype(np.uint32), 24,
                                      ref_params("hera-80").mod)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# The sampler kernels' wrappers on the CPU, and the uniform kernel's warp
+# compaction modelled in numpy
+# ---------------------------------------------------------------------------
+SAMPLER_SHAPES = [("hera-128a", "rc"), ("rubato-128l", "rc"),
+                  ("pasta-128l", "rc"), ("pasta-128l", "mats")]
+WORD_KINDS = ("random", "scattered", "all_rejected", "fallback", "high")
+STREAM_PAD = TSMP.STREAM_PAD
+
+
+def _stream_words(name, plane, kind, rows=5, seed=0):
+    """(rows, w) uint64 words of one sampler stream: random, or built to
+    hit an edge of the compaction."""
+    p = get_params(name)
+    n_out = p.n_round_constants if plane == "rc" else p.n_matrix_constants
+    w = TSMP.words_needed_uniform_stream(n_out)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (rows, w), dtype=np.uint64)
+    rejected = np.uint64(2**32 - 1)          # low `bits` bits >= q
+    if kind == "all_rejected":
+        words[:] = rejected
+    elif kind == "fallback":
+        # a cluster of rejections at the front and one at the back, so
+        # fewer than n_out are accepted and the tail takes the fallback
+        words[:, :5] = rejected
+        words[:, -STREAM_PAD - 1:] = rejected
+        words[0, 40:60] = rejected
+    elif kind == "scattered":
+        # rejections inside the chunks, fewer than the pad: every slot
+        # after the first shifts, and n_out fill before the row ends
+        words[:, 3:w - STREAM_PAD:max(1, w // 12)] = rejected
+    elif kind == "high":
+        words |= np.uint64(2**31)             # every word >= 2^31
+    return n_out, p.mod, words
+
+
+def _as_words(words, dtype):
+    """uint64 word values as the XOF hands them over: int32 bit patterns
+    (AES) or int64 values (threefry)."""
+    if dtype == torch.int32:
+        return torch.as_tensor(words.astype(np.uint32).view(np.int32))
+    return torch.as_tensor(words.astype(np.int64))
+
+
+@pytest.fixture
+def no_launches():
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    yield
+    assert not any(build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", WORD_KINDS)
+@pytest.mark.parametrize("name,plane", SAMPLER_SHAPES)
+def test_uniform_wrapper_on_cpu_is_the_reference(name, plane, kind, dtype,
+                                                 no_launches):
+    from repro_torch.kernels.sampler.ops import uniform_kernel_apply
+
+    n_out, mod, words = _stream_words(name, plane, kind,
+                                      rows=2 if plane == "mats" else 5)
+    got = uniform_kernel_apply(_as_words(words, dtype), n_out, mod)
+    want = RSMP.uniform_mod_q_stream(words.astype(np.uint32), n_out,
+                                     ref_params(name).mod)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _gauss_words(table, n=600, seed=4):
+    """(hi, lo) uint64 draws: random, and equal to a threshold, one below
+    it (at hi and at lo), and 0xFFFFFFFF."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64)
+    th, tl = table.hi.astype(np.uint64), table.lo.astype(np.uint64)
+    k = len(th)
+    hi[:k], lo[:k] = th, tl                                  # equal
+    fixed = ((th << np.uint64(32)) | tl) - np.uint64(1)      # one below
+    hi[k:2 * k] = fixed >> np.uint64(32)
+    lo[k:2 * k] = fixed & np.uint64(0xFFFFFFFF)
+    hi[2 * k:3 * k], lo[2 * k:3 * k] = th, tl - np.uint64(1) * (tl > 0)
+    hi[3 * k:3 * k + 4] = 2**32 - 1
+    lo[3 * k:3 * k + 2] = 2**32 - 1
+    hi[3 * k + 4:3 * k + 6], lo[3 * k + 4:3 * k + 6] = 0, 0
+    return hi.reshape(-1, 60), lo.reshape(-1, 60)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("sigma", [1.6, 3.2])
+def test_gauss_wrapper_on_cpu_is_the_reference(sigma, dtype, no_launches):
+    from repro_torch.kernels.sampler.ops import gauss_kernel_apply
+
+    t = TSMP.DGaussTable.build(sigma)
+    hi, lo = _gauss_words(t)
+    got = gauss_kernel_apply(_as_words(hi, dtype), _as_words(lo, dtype), t)
+    want = RSMP.discrete_gaussian(hi.astype(np.uint32), lo.astype(np.uint32),
+                                  RSMP.DGaussTable.build(sigma))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_producer_builds_its_gaussian_table_once(monkeypatch):
+    """One table a producer, the reference's; the kernels' copy on a
+    device is uploaded once per device and table."""
+    from repro_torch.kernels.sampler import ops as SO
+
+    p = get_params("rubato-128l")
+    built = []
+    build = TSMP.DGaussTable.build
+    monkeypatch.setattr(TSMP.DGaussTable, "build",
+                        staticmethod(lambda s: built.append(s) or build(s)))
+    prod = make_producer(None, p, device="cpu")
+    nonces, sids, ctrs = _pool("rubato-128l")
+    tables = prod.stack_tables([prod.session_material(n) for n in nonces])
+    for _ in range(2):
+        prod.produce(tables, sids, ctrs)
+    assert built == [p.sigma]
+    want = build(p.sigma)
+    assert (prod._gauss.sigma, prod._gauss.tail) == (want.sigma, want.tail)
+    np.testing.assert_array_equal(prod._gauss.hi, want.hi)
+    np.testing.assert_array_equal(prod._gauss.lo, want.lo)
+    thr = SO.device_thresholds(prod._gauss, torch.device("cpu"))
+    assert SO.device_thresholds(want, torch.device("cpu")) is thr
+    fixed = [(int(h) << 32) | int(lo) for h, lo in zip(want.hi, want.lo)]
+    assert [int(v) % 2**64 for v in thr] == fixed
+    assert fixed == sorted(fixed)
+
+
+def test_build_carries_the_sampler_entry_points():
+    from repro_torch.kernels import build
+
+    assert "sampler.cu" in build.SOURCES
+    assert {"repro_sampler_uniform", "repro_sampler_gauss"} \
+        <= set(build._SIGNATURES)
+    assert {"sampler_uniform", "sampler_gauss"} <= set(build.LAUNCHES)
+    src = (build.CSRC / "sampler.cu").read_text()
+    for name in ("sampler_uniform_kernel", "sampler_gauss_kernel",
+                 "repro_sampler_uniform", "repro_sampler_gauss"):
+        assert name in src
+    # the trace's roofline readers match these substrings
+    assert "aes_xof_kernel" not in src and "keystream_kernel" not in src
+
+
+def _kernel_unroll():
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "sampler.cu").read_text()
+    return int(re.search(r"constexpr int kUnroll = (\d+);", src).group(1))
+
+
+def _model_uniform(words, n_out, mod):
+    """sampler_uniform_kernel's warp, vote for vote: chunks of 32·kUnroll
+    words, one word a thread per step, the stable slot as the running
+    count plus the accepted threads below; stop once n_out are accepted;
+    then, if fewer were, the rejected candidates mod q in stream order."""
+    unroll = _kernel_unroll()
+    mask, q = (1 << mod.bits) - 1, mod.q
+    rows, n_words = words.shape
+    out = np.full((rows, n_out), -1, np.int64)
+    thread = np.arange(32)
+    for r in range(rows):
+        taken, base = 0, 0
+        while base < n_words and taken < n_out:
+            for u in range(unroll):
+                i = base + 32 * u + thread
+                c = np.where(i < n_words,
+                             words[r, np.minimum(i, n_words - 1)] & mask, q)
+                ok = c < q
+                slot = taken + np.cumsum(ok) - ok
+                hit = ok & (slot < n_out)
+                assert (out[r, slot[hit]] == -1).all()
+                out[r, slot[hit]] = c[hit]
+                taken += int(ok.sum())
+            base += 32 * unroll
+        base = 0
+        while base < n_words and taken < n_out:
+            i = base + thread
+            c = words[r, np.minimum(i, n_words - 1)] & mask
+            bad = (i < n_words) & (c >= q)
+            slot = taken + np.cumsum(bad) - bad
+            hit = bad & (slot < n_out)
+            out[r, slot[hit]] = c[hit] % q
+            taken += int(bad.sum())
+            base += 32
+    assert (out >= 0).all()                  # every slot written once
+    return out
+
+
+@pytest.mark.parametrize("kind", WORD_KINDS)
+@pytest.mark.parametrize("name,plane", SAMPLER_SHAPES)
+def test_uniform_kernel_model_is_the_reference(name, plane, kind):
+    n_out, mod, words = _stream_words(name, plane, kind,
+                                      rows=1 if plane == "mats" else 4,
+                                      seed=7)
+    got = _model_uniform(words.astype(np.int64), n_out, mod)
+    want = RSMP.uniform_mod_q_stream(words.astype(np.uint32), n_out,
+                                     ref_params(name).mod)
+    np.testing.assert_array_equal(got, np.asarray(want))

@@ -1,4 +1,5 @@
-"""Architecture registry: the 10 assigned archs, full + smoke variants.
+"""Architecture registry: the 10 assigned archs and the port-only
+granite-4.0-h-small, full + smoke variants.
 
 The port's copy of `repro.configs` (pure-Python data, kept here so the
 port imports nothing of the reference)."""

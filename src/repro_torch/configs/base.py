@@ -1,13 +1,16 @@
 """Model configuration system.
 
-One `ModelConfig` describes any of the 10 assigned architectures (dense /
+One `ModelConfig` describes any of the 10 assigned architectures, and the
+port's own granite-4.0-h-small (dense /
 MoE / SSM / hybrid / encoder-only / VLM-backbone).  Layer heterogeneity
 (gemma2's local/global alternation, jamba's 1-attn-per-8 + MoE-every-2) is
 expressed as a repeating *group* of `LayerSpec`s; each slot's parameters
 are stacked over groups.
 
 The port's copy of `repro.configs.base`: the same fields, derived
-properties, analytic parameter counts and registry.
+properties, analytic parameter counts and registry, and beside them the
+port-only fields, whose defaults leave every reference architecture as
+the reference has it.
 """
 
 from __future__ import annotations
@@ -76,6 +79,19 @@ class ModelConfig:
     frontend: str = "none"         # "none" | "audio" | "vision"
     frontend_dim: int = 0          # stub embedding dim fed by input_specs()
 
+    # port-only fields (the reference has none of them; each default
+    # leaves every reference architecture as it is): granite-4.0-h's
+    # muP multipliers, shared expert, conv bias and dropless expert share
+    shared_d_ff: int = 0           # a shared SwiGLU expert beside the routed
+    embed_mult: float = 1.0        # embeddings x this
+    residual_mult: float = 1.0     # each branch x this before its residual add
+    logits_div: float = 1.0        # logits / this
+    attn_scale: float = 0.0        # softmax scale; 0 = 1/sqrt(head_dim)
+    conv_bias: bool = False        # Mamba2 conv bias on x, B, C
+    dropless: bool = False         # every routed assignment is computed
+    experts_held: int = 0          # experts this device holds; 0 = all
+    expert_rank: int = 0           # held = [rank*held, (rank+1)*held)
+
     # numerics
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "float32"   # master params ("bfloat16" for >=398B)
@@ -97,12 +113,29 @@ class ModelConfig:
             hd = self.head_dim or self.d_model // self.num_heads
             if self.num_heads % self.kv_heads:
                 raise ValueError("num_heads must be divisible by kv_heads")
+        if self.experts_held:
+            if self.num_experts % self.experts_held:
+                raise ValueError(f"{self.name}: {self.experts_held} held "
+                                 f"experts do not divide {self.num_experts}")
+            if not self.dropless:
+                raise ValueError(f"{self.name}: an expert share needs "
+                                 "dropless routing")
+            if not 0 <= self.expert_rank < self.num_experts // self.experts_held:
+                raise ValueError(
+                    f"{self.name}: expert rank {self.expert_rank} outside "
+                    f"{self.num_experts} experts by {self.experts_held}")
 
     @property
     def resolved_head_dim(self) -> int:
         if self.num_heads == 0:
             return 0
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the experts this device holds."""
+        n = self.experts_held or self.num_experts
+        return self.expert_rank * n, n
 
     @property
     def num_groups(self) -> int:
@@ -150,10 +183,13 @@ class ModelConfig:
                     + self.conv_width * self.conv_dim
                     + 2 * h                      # A_log, D
                     + di * d                     # out_proj
+                    + self.conv_dim * self.conv_bias
                 )
             mats = 3 if self.mlp_gated else 2
             if spec.moe:
-                total += n * (self.num_experts * 3 * d * f + d * self.num_experts)
+                held = self.held_experts[1]
+                total += n * (held * 3 * d * f + d * self.num_experts)
+                total += n * 3 * d * self.shared_d_ff
                 if self.dense_residual:
                     total += n * mats * d * f
             elif f > 0:
@@ -162,14 +198,17 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Params active per token (MoE: top_k of num_experts)."""
+        """Params active per token (MoE: top_k of num_experts; of a share,
+        its experts' expected part of the top_k)."""
         if not self.num_experts:
             return self.param_count()
         d, f = self.d_model, self.d_ff
+        E, held = self.num_experts, self.held_experts[1]
         inactive = 0
         for spec in self.group:
             if spec.moe:
-                inactive += self.num_groups * (self.num_experts - self.top_k) * 3 * d * f
+                inactive += (self.num_groups * held * (E - self.top_k)
+                             * 3 * d * f // E)
         return self.param_count() - inactive
 
 
@@ -203,5 +242,5 @@ def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         internlm2_20b, granite_3_8b, deepseek_7b, gemma2_9b, qwen2_vl_7b,
         hubert_xlarge, mamba2_2_7b, mixtral_8x7b, arctic_480b,
-        jamba_1_5_large,
+        jamba_1_5_large, granite_4_0_h_small,
     )

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cipher import Cipher, CipherBatch, StreamSession
 from repro_torch.core.farm import KeystreamFarm, WindowPlan
 
@@ -62,10 +63,16 @@ def make_decryptor(cipher: Cipher, labels_from_tokens: bool = True):
 
     batch: {"ct": (B, T) ints, "base_ctr": scalar} ->
            {"tokens": (B, T) int32, "labels": (B, T) int32}
+
+    Each call is one ``data.decrypt`` span (`repro_torch.obs`).
     """
     p = cipher.params
 
     def decrypt(batch):
+        with obs.span("data.decrypt", batch["ct"]):
+            return _decrypt(batch)
+
+    def _decrypt(batch):
         ct = batch["ct"]
         B, T = ct.shape
         n_tok = B * T

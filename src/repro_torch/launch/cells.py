@@ -53,6 +53,10 @@ def cell_applicable(arch: str, shape_name: str):
     """Returns (applicable, reason_if_not)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
+    if cfg.dropless:
+        return False, ("dropless routing (the port's granite-4.0-h-small) "
+                       "has no expert-parallel path for the production "
+                       "meshes")
     if shape.kind == "decode" and not cfg.causal:
         return False, "encoder-only arch has no autoregressive decode step"
     if shape_name == "long_500k" and arch not in SUBQUADRATIC:

@@ -85,9 +85,9 @@ def _auto_k_chunk(n: int) -> int:
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
                         softcap: float = 0.0, q_chunk: int = 0,
-                        k_chunk: int = 0):
+                        k_chunk: int = 0, scale: float = 0.0):
     """q: (B, T, K, G, hd); k, v: (B, S, K, hd).  Returns (B, T, K, G, hd)
-    in q's dtype.
+    in q's dtype.  ``scale`` multiplies the scores (0: 1/sqrt(hd)).
 
     Per q chunk, the KV chunks from the first one the window reaches to
     the last one causality reaches, each folded into an online softmax
@@ -101,7 +101,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     assert T % q_chunk == 0 and S % k_chunk == 0, (T, S, q_chunk, k_chunk)
     nq = T // q_chunk
     nk_total = S // k_chunk
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     dev = q.device
     qf = q.float()
 
@@ -149,12 +149,13 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
 # Decode attention (single new token vs. cache)
 # ---------------------------------------------------------------------------
 def decode_attention(q, k_cache, v_cache, cur_len: int, *, window: int = 0,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, scale: float = 0.0):
     """q: (B, 1, K, G, hd); caches: (B, S, K, hd); cur_len: number of valid
-    cache positions (including the token just written)."""
+    cache positions (including the token just written); ``scale`` as in
+    :func:`blockwise_attention`."""
     hd = q.shape[-1]
     S = k_cache.shape[1]
-    scale = 1.0 / math.sqrt(hd)
+    scale = scale or 1.0 / math.sqrt(hd)
     s = torch.einsum("bukgd,bskd->bkgs", q.float(), k_cache.float()) * scale
     s = _soft_cap(s, softcap)
     kpos = torch.arange(S, device=q.device)

@@ -12,12 +12,14 @@ from __future__ import annotations
 import torch
 
 
-def causal_conv(u, w):
-    """Depthwise causal conv.  u: (B, T, C); w: (W, C).  Returns (B, T, C).
+def causal_conv(u, w, b=None):
+    """Depthwise causal conv.  u: (B, T, C); w: (W, C); b: (C,) or None.
+    Returns (B, T, C).
 
     Written as W shifted multiply-adds in float32 rather than ``conv1d``:
     cuDNN would run a float32 convolution in TF32 on the card by default,
-    and the reference's convolution is full float32."""
+    and the reference's convolution is full float32.  The bias is added
+    in float32 too, before the cast."""
     W, C = w.shape
     T = u.shape[1]
     uf = u.float()
@@ -26,6 +28,8 @@ def causal_conv(u, w):
     out = pad[:, 0:T] * wf[0]
     for i in range(1, W):
         out = out + pad[:, i:i + T] * wf[i]
+    if b is not None:
+        out = out + b.float()
     return out.to(u.dtype)
 
 
@@ -70,8 +74,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     # ---- intra-chunk (quadratic, attention-like) ----
     diff = A_cs[:, :, :, None, :] - A_cs[:, :, None, :, :]   # (B,NC,L,L,H)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
+    # masked before the exp: above the diagonal diff reaches hundreds at
+    # published widths (dt up to 0.1, A to -16, 256 positions), where
+    # exp overflows and its backward would give 0 * inf = NaN
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  float("-inf")))
     cb = torch.einsum("bcls,bcms->bclm", C_c, B_c)           # (B,NC,L,L)
     scores = cb[..., None] * decay * dt_c[:, :, None, :, :]  # (B,NC,L,L,H)
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", scores, x_c)

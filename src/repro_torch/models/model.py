@@ -47,6 +47,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -117,6 +118,10 @@ def _mamba_slot_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         "gate_norm": ParamDef((G, di), "ssm_vec", dtype="float32", init="zeros"),
         "w_out": ParamDef((G, di, D), "ssm_out", scale=out_scale),
     }
+    if cfg.conv_bias:
+        for name, width in (("conv_x_b", di), ("conv_B_b", st),
+                            ("conv_C_b", st)):
+            d[name] = ParamDef((G, width), "ssm_vec", scale=0.1)
     if cfg.sandwich_norm:
         d["post_norm"] = ParamDef((G, D), "norm", dtype="float32", init="zeros")
     return d
@@ -136,15 +141,22 @@ def _ffn_slot_defs(cfg: ModelConfig, moe: bool) -> Dict[str, ParamDef]:
         "wo_m": ParamDef((G, F_, D), "wo_mlp", scale=out_scale),
     }
     if moe:
-        E = cfg.num_experts
+        E, held = cfg.num_experts, cfg.held_experts[1]
         d.update({
             "router": ParamDef((G, D, E), "router", dtype="float32"),
-            "e_wi_g": ParamDef((G, E, D, F_), "expert_wi"),
-            "e_wi_u": ParamDef((G, E, D, F_), "expert_wi"),
-            "e_wo": ParamDef((G, E, F_, D), "expert_wo", scale=out_scale),
+            "e_wi_g": ParamDef((G, held, D, F_), "expert_wi"),
+            "e_wi_u": ParamDef((G, held, D, F_), "expert_wi"),
+            "e_wo": ParamDef((G, held, F_, D), "expert_wo", scale=out_scale),
         })
         if cfg.dense_residual:
             d.update(mlp)
+        if cfg.shared_d_ff:
+            Fs = cfg.shared_d_ff
+            d.update({
+                "s_wi_g": ParamDef((G, D, Fs), "wi"),
+                "s_wi_u": ParamDef((G, D, Fs), "wi"),
+                "s_wo": ParamDef((G, Fs, D), "wo_mlp", scale=out_scale),
+            })
     elif cfg.mlp_gated:
         d.update(mlp)
     else:
@@ -459,6 +471,8 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
         x = x.to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    if cfg.embed_mult != 1.0:
+        x = x * torch.tensor(cfg.embed_mult, dtype=dt)
     return x
 
 
@@ -589,7 +603,8 @@ def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
         if cache_kv is None:
             o = A.blockwise_attention(q, k, v, causal=cfg.causal,
                                       window=spec.window,
-                                      softcap=cfg.attn_softcap)
+                                      softcap=cfg.attn_softcap,
+                                      scale=cfg.attn_scale)
             new_kv = (k, v)
         else:
             k_cache, v_cache = cache_kv
@@ -598,7 +613,8 @@ def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
                 v_cache[:, cur_len - 1] = v[:, 0]
             o = A.decode_attention(q, k_cache, v_cache, cur_len,
                                    window=spec.window,
-                                   softcap=cfg.attn_softcap)
+                                   softcap=cfg.attn_softcap,
+                                   scale=cfg.attn_scale)
             new_kv = (k_cache, v_cache)
     # the output projection over (heads, head dim) flattened head-major,
     # sharded or not (one order of the sums): an einsum may merge the two
@@ -609,12 +625,13 @@ def _attn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
 
 
 def _ssm_core(cfg: ModelConfig, xz, Bm, Cm, dtv, Aneg, D_skip, conv_x,
-              conv_B, conv_C, cache=None):
+              conv_B, conv_C, cache=None, conv_b=(None, None, None)):
     """The Mamba2 mixer between the projections and the gate: causal
-    convs, SSD scan (or one recurrent step against ``cache``, written in
-    place) and the D skip.  Heads are independent, so any whole-head
-    slice of (xz, dtv, Aneg, D_skip, conv_x) with B and C whole gives
-    that slice of the output.  Returns (y (B, T, h*hd), state)."""
+    convs (``conv_b``: their biases on x, B and C, or Nones), SSD scan
+    (or one recurrent step against ``cache``, written in place) and the
+    D skip.  Heads are independent, so any whole-head slice of (xz, dtv,
+    Aneg, D_skip, conv_x) with B and C whole gives that slice of the
+    output.  Returns (y (B, T, h*hd), state)."""
     dt_ = dtype_of(cfg)
     B, T, _ = xz.shape
     hd = cfg.ssm_head_dim
@@ -625,16 +642,20 @@ def _ssm_core(cfg: ModelConfig, xz, Bm, Cm, dtv, Aneg, D_skip, conv_x,
         new_cache = {"conv_x": xz[:, T - (w - 1):],
                      "conv_B": Bm[:, T - (w - 1):],
                      "conv_C": Cm[:, T - (w - 1):]}
-        xc = F.silu(M2.causal_conv(xz, conv_x.to(dt_)))
-        Bc = F.silu(M2.causal_conv(Bm, conv_B.to(dt_)))
-        Cc = F.silu(M2.causal_conv(Cm, conv_C.to(dt_)))
+        xc, Bc, Cc = (F.silu(M2.causal_conv(u, w.to(dt_), b))
+                      for u, w, b in zip((xz, Bm, Cm),
+                                         (conv_x, conv_B, conv_C), conv_b))
         xh = xc.reshape(B, T, h, hd)
-        y, new_cache["h"] = M2.ssd_chunked(xh, dtv, Aneg, Bc, Cc,
-                                           cfg.ssm_chunk)
+        with obs.span("ssm.scan", xh):
+            y, new_cache["h"] = M2.ssd_chunked(xh, dtv, Aneg, Bc, Cc,
+                                               cfg.ssm_chunk)
     else:
         xt, cs_x = M2.conv_decode(xz[:, 0], cache["conv_x"], conv_x.to(dt_))
         Bt, cs_B = M2.conv_decode(Bm[:, 0], cache["conv_B"], conv_B.to(dt_))
         Ct, cs_C = M2.conv_decode(Cm[:, 0], cache["conv_C"], conv_C.to(dt_))
+        if conv_b[0] is not None:
+            xt, Bt, Ct = (u + b.to(u.dtype)
+                          for u, b in zip((xt, Bt, Ct), conv_b))
         xt, Bt, Ct = F.silu(xt), F.silu(Bt), F.silu(Ct)
         xh = xt.reshape(B, 1, h, hd)
         y1, h_next = M2.ssd_decode(xh[:, 0], dtv[:, 0], Aneg, Bt, Ct,
@@ -761,9 +782,14 @@ def _mamba_apply(cfg: ModelConfig, p, x, cache=None, shardings=None):
             p["conv_C"])
     policy = _policy(shardings)
     if policy is not None and isinstance(xz, DTensor):
+        if cfg.conv_bias:
+            raise NotImplementedError(f"{cfg.name}: the sharded Mamba2 "
+                                      "block has no conv bias")
         y, new_cache = _ssm_sharded(cfg, policy, args, cache)
     else:
-        y, new_cache = _ssm_core(cfg, *args, cache=cache)
+        conv_b = ((p["conv_x_b"], p["conv_B_b"], p["conv_C_b"])
+                  if cfg.conv_bias else (None, None, None))
+        y, new_cache = _ssm_core(cfg, *args, cache=cache, conv_b=conv_b)
     gated = _wsc(rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps),
                  ssm, "ssm_inner")
     out = torch.einsum("bte,ed->btd", gated.to(dt_),
@@ -781,13 +807,21 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
         policy = _policy(shardings)
-        moe = (MOE.moe_ffn if policy is None else
+        if cfg.dropless and policy is not None:
+            raise NotImplementedError(f"{cfg.name}: dropless routing has "
+                                      "no expert-parallel path")
+        moe = (MOE.moe_ffn_held if cfg.dropless else
+               MOE.moe_ffn if policy is None else
                lambda *a: MOE.moe_ffn_sharded(*a, policy))
         y, aux = moe(cfg, x, p["router"], p["e_wi_g"].to(dt),
                      p["e_wi_u"].to(dt), p["e_wo"].to(dt))
         if cfg.dense_residual:
             y = y + gated_mlp(x, p["wi_g"].to(dt), p["wi_u"].to(dt),
                               p["wo_m"].to(dt), shardings=shardings)
+        if cfg.shared_d_ff:
+            with obs.span("moe.shared", x):
+                y = y + gated_mlp(x, p["s_wi_g"].to(dt), p["s_wi_u"].to(dt),
+                                  p["s_wo"].to(dt))
     elif cfg.mlp_gated:
         y = gated_mlp(x, p["wi_g"].to(dt), p["wi_u"].to(dt),
                       p["wo_m"].to(dt), shardings=shardings)
@@ -801,8 +835,9 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x, shardings=None):
 
 def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
                  cache=None, cur_len=None, shardings=None):
-    """One layer: (attn|mamba) + optional FFN, pre-norm residual.
-    Returns (x, new_cache, aux)."""
+    """One layer: (attn|mamba) + optional FFN, pre-norm residual, each
+    branch times ``cfg.residual_mult`` where it is not 1.  Returns (x,
+    new_cache, aux)."""
     h_in = rms_norm(_rows(x, shardings), p["norm"], cfg.norm_eps)
     if spec.kind == "attn":
         mix, new_cache = _attn_apply(
@@ -816,6 +851,8 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
                                       shardings=shardings)
     if cfg.sandwich_norm:
         mix = rms_norm(mix, p["post_norm"], cfg.norm_eps)
+    if cfg.residual_mult != 1.0:
+        mix = mix * cfg.residual_mult
     x = x + mix
     del h_in, mix           # not held through the FFN's temporaries
 
@@ -825,6 +862,8 @@ def _block_apply(cfg: ModelConfig, spec: LayerSpec, p, x, cos, sin,
         y, aux = _ffn_apply(cfg, spec, p, h2, shardings=shardings)
         if cfg.sandwich_norm:
             y = rms_norm(y, p["post_norm2"], cfg.norm_eps)
+        if cfg.residual_mult != 1.0:
+            y = y * cfg.residual_mult
         x = x + y
     return x, new_cache, aux
 
@@ -837,6 +876,8 @@ def _logits(cfg: ModelConfig, params, x, shardings=None):
     else:
         logits = torch.einsum("btd,dv->btv", x, params["head"].to(dt))
     logits = logits.float()
+    if cfg.logits_div != 1.0:
+        logits = logits / cfg.logits_div
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return _wsc(logits, shardings, "logits")

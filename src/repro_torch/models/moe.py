@@ -12,6 +12,10 @@ of shape (N, E) is materialized beyond the router's probabilities.
 ``shard_map`` body on each rank's local shards, with explicit
 ``torch.distributed`` collectives whose adjoints are written out
 (:class:`_AllGather`, :class:`_AllReduce`, :class:`_AllReduceShared`).
+
+:func:`moe_ffn_held` is the port's own dropless layer over the experts
+one device holds (granite-4.0-h-small's expert share): no capacity, a
+grouped product over the held experts.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 
 
@@ -95,6 +100,79 @@ def moe_ffn(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo):
     f = expert_counts(e_slot, E).float() / (N * k)
     aux = E * torch.sum(f * probs.mean(0))
 
+    return y.reshape(B, T, D).to(x.dtype), aux
+
+
+def _held_groups(key, held: int):
+    """The groups of a held-expert layer: the indices of the assignments
+    to held experts (``key`` < ``held``; ``held`` names an expert held
+    elsewhere) sorted by expert, stably, and each held expert's count,
+    read on the host."""
+    order = torch.argsort(key, stable=True)
+    sizes = expert_counts(key, held + 1).tolist()[:held]
+    return order[:sum(sizes)], sizes
+
+
+def moe_ffn_held(cfg: ModelConfig, x, router_w, wi_g, wi_u, wo):
+    """Dropless top-k MoE over the experts this device holds
+    (``cfg.held_experts``): one expert-parallel rank's part of the layer,
+    run without its exchange.  x: (B, T, D); router_w: (D, E) over all E
+    experts; expert weights of the held ones: (E_held, D, F)/(E_held, F,
+    D).
+
+    The router scores every expert and keeps the k largest logits; the
+    gates are the softmax over those k (the published gate: the softmax
+    over all E renormalised over the k gives the same numbers, but its
+    order of the k breaks down where the others' probabilities
+    underflow).  Every assignment to a held expert is
+    computed: the assignments are sorted by expert (stably, token order
+    within one), each held expert multiplies its own rows in a grouped
+    product, and the outputs are added into their tokens' rows times
+    their gates, in float32.  Assignments to experts held elsewhere add
+    nothing here.  The group sizes are read on the host once a call.
+
+    Counters (`repro_torch.obs.count`): ``moe.routed``, the assignments
+    to each held expert as the router made them, counted from its top-k
+    apart from the groups (:func:`_held_groups`), and ``moe.computed``,
+    the rows each held expert's product ran on.
+
+    Returns (y (B, T, D) in x's dtype, aux), the aux loss as
+    :func:`moe_ffn`'s over all E experts."""
+    B, T, D = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    e0, held = cfg.held_experts
+    N = B * T
+    xf = x.reshape(N, D)
+    with obs.span("moe.route", x):
+        logits = xf.float() @ router_w.float()
+        top, eidx = torch.topk(logits, k, dim=-1)             # (N, k)
+        gates = torch.softmax(top, dim=-1)
+        rel = eidx - e0
+        mine = (rel >= 0) & (rel < held)
+        # an expert held elsewhere sorts last, as "expert" held
+        sel, sizes = _held_groups(torch.where(mine, rel, held).reshape(-1),
+                                  held)
+        rows, g = sel // k, gates.reshape(-1)[sel]
+    if obs.counting():
+        obs.count("moe.routed",
+                  torch.bincount(rel[mine], minlength=held).tolist())
+    with obs.span("moe.experts", x):
+        xs = xf[rows]
+        outs, done, at = [], [], 0
+        for e in range(held):
+            xe = xs[at:at + sizes[e]]
+            h = F.silu(xe @ wi_g[e]) * (xe @ wi_u[e])
+            outs.append(h @ wo[e])
+            done.append(xe.shape[0])
+            at += sizes[e]
+        ye = torch.cat(outs)
+        y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+        y = y.index_add(0, rows, ye.float() * g[:, None])
+    obs.count("moe.computed", done)
+
+    # ---- load-balance aux loss (Switch): E * sum_e f_e * P_e ----
+    f = expert_counts(eidx, E).float() / (N * k)
+    aux = E * torch.sum(f * torch.softmax(logits, dim=-1).mean(0))
     return y.reshape(B, T, D).to(x.dtype), aux
 
 

@@ -18,7 +18,9 @@ synchronised.
     obs.records()                           # the spans in memory
 
 Tracing has no setting of its own: whoever runs the profiler sees the
-spans.  A count is the number of records of one name.
+spans.  A count is the number of records of one name; a counter
+(`count`) is a record that carries a value, made where a layer knows
+how much work it did.
 
 The range is a function-scope one (``_RecordFunctionFast``), which the
 profiler keeps on the host's timeline alone: a user-scope
@@ -55,6 +57,7 @@ class Record:
     parent: Optional["Record"] = dataclasses.field(default=None, repr=False)
     events: Optional[tuple] = dataclasses.field(default=None, repr=False)
     _device_ms: Optional[float] = dataclasses.field(default=None, repr=False)
+    value: Optional[List[int]] = None     # a counter's; None for a span
 
     @property
     def device_ms(self) -> Optional[float]:
@@ -110,6 +113,28 @@ def span(name: str, stream=None):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _recorded(name, stream)
+
+
+def counting() -> bool:
+    """Whether `count` records now: under a profiler, and not while
+    autograd runs a backward pass.  A layer asks before it computes a
+    value that only a counter reads."""
+    return (_profiler._is_profiler_enabled
+            and torch._C._current_graph_task_id() == -1)
+
+
+def count(name: str, value) -> None:
+    """A counter: under a profiler, one closed record of ``name`` whose
+    ``value`` is ``value`` (a list of ints), its parent the span open on
+    this thread.  Not made while autograd runs a backward pass: a
+    checkpointed layer recomputed there counts its work once, in the
+    forward pass."""
+    if not counting():
+        return
+    stack = _local.__dict__.setdefault("stack", [])
+    now = time.time_ns()
+    _records.append(Record(name, now, now, parent=stack[-1] if stack
+                           else None, value=list(value)))
 
 
 def records() -> List[Record]:

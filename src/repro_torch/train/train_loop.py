@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -125,7 +126,11 @@ class TrainStep:
     dict as ``times`` fills it with the step's ``decrypt_ms``,
     ``fwd_bwd_ms``, ``adamw_ms`` and ``step_ms`` (CUDA events on the card)
     and waits for the step; ``last_batch`` is the plaintext batch the last
-    step trained on.  With a policy, ``specs`` holds the reference's
+    step trained on.  Passing ``observe`` calls ``observe(grads)`` with
+    the gradients AdamW is about to apply (flat, in
+    :func:`repro_torch.train.tree.leaves` order, averaged over the
+    microbatches).  Spans (`repro_torch.obs`): ``train.fwd_bwd`` and
+    ``train.adamw``.  With a policy, ``specs`` holds the reference's
     ``{"params", "opt", "batch"}`` specs (else None)."""
 
     def __init__(self, cfg: ModelConfig, opt: OptConfig, microbatch: int,
@@ -179,7 +184,7 @@ class TrainStep:
         return loss, out
 
     def __call__(self, params, opt_state, batch, step_idx,
-                 times: Optional[dict] = None):
+                 times: Optional[dict] = None, observe=None):
         marks = _Marks(self.device)
         batch = _on_device(batch, self.device)
         if self.decryptor is not None:
@@ -192,29 +197,36 @@ class TrainStep:
             raise ValueError("the parameters carry no gradient: call "
                              "requires_grad_() on the model")
         m = self.microbatch
-        if m > 1:
-            parts = {k: _interleaved(v, m) for k, v in batch.items()}
-            # accumulate in bf16 for bf16 masters, else in float32
-            acc_dt = (torch.bfloat16 if self.cfg.param_dtype == "bfloat16"
-                      else torch.float32)
-            gsum = [torch.zeros_like(p, dtype=acc_dt) for p in flat]
-            lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(m):
-                loss, grads = self._loss_and_grads(
-                    params, flat, {k: v[i] for k, v in parts.items()})
-                for a, g in zip(gsum, grads):
-                    a.add_(g.to(a.dtype))
-                lsum = lsum + loss
-                del grads
-            grads = [g / m for g in gsum]
-            loss = lsum / m
-        else:
-            loss, grads = self._loss_and_grads(params, flat, batch)
+        # the names stay bound through AdamW, as the dry run's peaks have them
+        with obs.span("train.fwd_bwd", self.device):
+            if m > 1:
+                parts = {k: _interleaved(v, m) for k, v in batch.items()}
+                # accumulate in bf16 for bf16 masters, else in float32
+                acc_dt = (torch.bfloat16
+                          if self.cfg.param_dtype == "bfloat16"
+                          else torch.float32)
+                gsum = [torch.zeros_like(p, dtype=acc_dt) for p in flat]
+                lsum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+                for i in range(m):
+                    loss, grads = self._loss_and_grads(
+                        params, flat, {k: v[i] for k, v in parts.items()})
+                    for a, g in zip(gsum, grads):
+                        a.add_(g.to(a.dtype))
+                    lsum = lsum + loss
+                    del grads
+                grads = [g / m for g in gsum]
+                loss = lsum / m
+            else:
+                loss, grads = self._loss_and_grads(params, flat, batch)
         marks.mark()
+        if observe is not None:
+            observe(grads)
 
-        params, opt_state, om = adamw_update(
-            params, unflatten(params, grads), opt_state, int(step_idx),
-            self.opt)
+        with obs.span("train.adamw", self.device):
+            params, opt_state, om = adamw_update(
+                params, unflatten(params, grads), opt_state, int(step_idx),
+                self.opt)
         marks.mark()
         if times is not None:
             dec, fb, upd = marks.ms()

@@ -28,6 +28,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as ref_get_config  # noqa: E402
+from repro.configs.base import list_archs as ref_list_archs  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro.models import mamba2 as RM2  # noqa: E402
@@ -46,7 +47,8 @@ from repro_torch.models.convert import (  # noqa: E402
     params_to_numpy,
 )
 
-ARCHS = list_archs()
+#: the architectures the reference holds (the port adds its own beside them)
+ARCHS = ref_list_archs()
 CAUSAL = [a for a in ARCHS if get_config(a, smoke=True).causal]
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 HIDDEN_TOL = {("gemma2-9b", "bfloat16"): 0.125}   # see the module note
@@ -84,13 +86,23 @@ def _ref_np(tree):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_the_reference(arch, smoke):
+    """Every field the reference has is equal; each port-only field holds
+    its neutral default."""
     c, r = get_config(arch, smoke), ref_get_config(arch, smoke)
-    assert dataclasses.asdict(c) == dataclasses.asdict(r)
+    got, want = dataclasses.asdict(c), dataclasses.asdict(r)
+    assert {k: got[k] for k in want} == want
+    neutral = {f.name: f.default for f in dataclasses.fields(CB.ModelConfig)
+               if f.name not in want}
+    assert neutral and {k: got[k] for k in neutral} == neutral
     assert c.param_count() == r.param_count()
     assert c.active_param_count() == r.active_param_count()
     for prop in ("resolved_head_dim", "num_groups", "vocab_padded",
                  "d_inner", "ssm_heads", "conv_dim"):
         assert getattr(c, prop) == getattr(r, prop), prop
+
+
+def test_registry_is_the_reference_and_the_port_only_archs():
+    assert list_archs() == sorted(ref_list_archs() + ["granite-4.0-h-small"])
 
 
 def test_config_registry_rejects_an_unknown_arch():

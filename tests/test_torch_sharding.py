@@ -30,7 +30,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.configs.base import get_config, list_archs  # noqa: E402
+from repro.configs.base import list_archs as ref_list_archs  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.launch import elastic as EL  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.sharding import (  # noqa: E402
@@ -42,7 +43,8 @@ from repro_torch.train.optimizer import OptConfig, opt_state_specs  # noqa: E402
 from repro_torch.train.train_loop import act_shardings, batch_specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = list_archs()
+#: the architectures the reference holds (the port adds its own beside them)
+ARCHS = ref_list_archs()
 MESHES = {
     "16x16": ((16, 16), ("data", "model")),
     "2x16x16": ((2, 16, 16), ("pod", "data", "model")),

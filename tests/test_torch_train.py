@@ -46,7 +46,8 @@ from repro.train import checkpoint as RCK  # noqa: E402
 from repro.train import optimizer as RO  # noqa: E402
 from repro.train.train_loop import make_train_step as ref_train_step  # noqa: E402
 
-from repro_torch.configs.base import get_config, list_archs  # noqa: E402
+from repro.configs.base import list_archs as ref_list_archs  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.cipher import make_cipher  # noqa: E402
 from repro_torch.data import encrypted as E  # noqa: E402
 from repro_torch.data import pipeline as P  # noqa: E402
@@ -60,7 +61,8 @@ from repro_torch.train.train_loop import make_train_step  # noqa: E402
 from repro_torch.train.tree import leaves_with_paths  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = list_archs()
+#: the architectures the reference holds (the port adds its own beside them)
+ARCHS = ref_list_archs()
 
 
 def _name(path):

@@ -32,12 +32,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.base import get_config as ref_get_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 
-from repro_torch.configs.base import get_config, list_archs  # noqa: E402
+from repro.configs.base import list_archs as ref_list_archs  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.train.tree import leaves_with_paths  # noqa: E402
 
-CASES = ([(a, "float32", False) for a in list_archs()]
+# the architectures the reference holds (the port adds its own beside them)
+CASES = ([(a, "float32", False) for a in ref_list_archs()]
          + [("granite-3-8b", "bfloat16", False),
             ("granite-3-8b", "float32", True),
             ("mixtral-8x7b", "float32", True)])

@@ -20,6 +20,9 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels on int32 and int64 words of hera-128a, rubato-128l and
    pasta-128l (its matrix plane too), then timed at the rubato bulk
    cell's 140 032 lanes beside their plain versions and their bounds;
+   the Mamba-2 SSD scan's kernels (forward and backward) against autograd
+   of the plain float32 scan at the configurations' (P, S, chunk) and at
+   the train cell's shape, where both are also timed beside their bound;
 4. the reference's 10 golden keystream digests through the kernel
    producer and the kernel engine;
 5. the main path: ``HHEServer`` at window 4096 with 64 sessions for
@@ -95,7 +98,9 @@ Phases (any failure exits non-zero; nothing is caught):
    40, and mamba2-2.7b's float32 gap at 1, 4, 16 layers beside its 64
    (printed: whether each grows with depth); mamba2-2.7b at full config
    and mixtral-8x7b at full width cut to 2 layers through ``serve_loop``
-   (prefill + 8 decode steps, finite logits, times); and every causal
+   (prefill + 8 decode steps, finite logits, times; launches counted
+   around the first prefill, the "llm_families" path, the SSD scan's
+   forward once a Mamba layer); and every causal
    arch at its smoke config, float32 logits of prefill + 3 decode steps
    on the card against the CPU on the same weights (<= 1e-4);
 12. the training path: ``repro_torch.launch.train.run`` in-process on
@@ -115,7 +120,10 @@ Phases (any failure exits non-zero; nothing is caught):
    encrypt included), an encrypted step's kernels and idle share by
    ``torch.profiler``, and peak memory; then, at the training
    example's size, save / restore (bit-equal) / resume (one step within
-   1e-3 of an uninterrupted run) and keep-last GC; and
+   1e-3 of an uninterrupted run) and keep-last GC; one train step of
+   granite-4.0-h-small's smoke config with its full config's remat in 2
+   microbatches (the "mamba_train" path: the SSD scan's forward twice and
+   its backward once a Mamba layer and microbatch); and
    ``examples/torch_encrypted_training.py`` with its defaults as a child
    process (exit 0: the loss decreased);
 13. the multi-card path over ``torch.distributed``: a probe of the four
@@ -305,6 +313,10 @@ SOURCES = {
                         "none: src/repro/crypto/sampler.py:55 is plain jnp"),
     "sampler_gauss": ("src/repro_torch/csrc/sampler.cu",
                       "none: src/repro/crypto/sampler.py:111 is plain jnp"),
+    "ssd_fwd": ("src/repro_torch/csrc/ssd.cu",
+                "none: src/repro/models/mamba2.py ssd_chunked is plain jnp"),
+    "ssd_bwd": ("src/repro_torch/csrc/ssd.cu",
+                "none: the reference differentiates ssd_chunked by jax.grad"),
 }
 MAIN_PATH = ("keystream", "aes_xof")
 
@@ -616,6 +628,161 @@ def check_samplers(dev, errors: Errors) -> dict:
     torch.cuda.empty_cache()
     log(json.dumps({"samplers": rows}))
     return rows
+
+
+# the Mamba-2 SSD scan: granite-4.0-h-small's train cell (B, T, H, P, S, L)
+# and the configurations' (P, S, chunk): granite-4.0-h-small and
+# mamba2-2.7b, jamba-1.5-large, the smoke variants
+SSD_CELL = (1, 8192, 128, 64, 128, 256)
+SSD_CHECKS = ((64, 128, 256), (64, 16, 128), (16, 16, 32))
+FFMA_PER_S = 67e12      # float32 FLOP/s outside the tensor cores
+
+
+def ssd_work(B, T, H, P, S, L) -> dict:
+    """FLOPs of the products each direction of the scan needs, the FLOPs
+    the kernels' design computes, and the bytes they must move.  Per chunk
+    and head the forward needs the state and inter-chunk products (2 L P S
+    each) and the causal intra-chunk one (L (L + 1) P), per chunk C B^T
+    (L (L + 1) S).  The backward needs four L P S products a chunk and head
+    (the state's gradient, dC's inter share, dx's and dB's state shares),
+    two causal ones (dy x^T, dx's intra share) and per chunk two (dC and
+    dB from the head-summed dCB).  The design does one L P S product more
+    (dx_kernel computes C h^T again, since dbc_kernel sums dC over heads)
+    and builds C B^T again.  Bytes: inputs read once, outputs written once,
+    the chunk states (B, chunks, H, P, S) float32 among the forward's
+    outputs and the backward's inputs; x, B, C, y, dy and their gradients
+    bfloat16.  Each entry: (needed FLOPs, bytes, design FLOPs)."""
+    nc, tri, lps = T // L, L * (L + 1), 2 * L * P * S
+    x, bc, v, st = 2 * B * T * H * P, 2 * 2 * B * T * S, 4 * B * T * H, \
+        4 * B * nc * H * P * S
+    fwd = B * nc * (H * (2 * lps + tri * P) + tri * S)
+    bwd = B * nc * (H * (4 * lps + 2 * tri * P) + 2 * tri * S)
+    return {"ssd_fwd": (fwd, x + bc + v + x + st + st / nc, fwd),
+            "ssd_bwd": (bwd, x + bc + v + x + st + x + v + bc,
+                        bwd + B * nc * (H * lps + tri * S))}
+
+
+# what each output of the scan (y, h_final, dx, ddt, dA, dB, dC) may differ
+# from the plain float32 scan by, as a share of the plain output's largest
+# entry: the float32 share (1e-4; dA, a sum over T*H*P products that
+# cancel, 1e-3), plus, where the kernel returns bfloat16, one rounding of
+# the largest entry: half a bfloat16 unit (2^-8) for y, which the plain
+# scan keeps in float32, one unit (2^-7) for dx, dB and dC, which autograd
+# rounds to the leaves' bfloat16 on the plain side too
+SSD_OUTPUTS = ("y", "h_final", "dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_limit(name: str, bf16: bool) -> float:
+    tol = 1e-3 if name == "dA" else 1e-4
+    if bf16 and name == "y":
+        return tol + 2.0 ** -8
+    if bf16 and name in ("dx", "dB", "dC"):
+        return tol + 2.0 ** -7
+    return tol
+
+
+def check_ssd(dev, errors: "Errors") -> dict:
+    """The SSD scan's kernels against autograd of the plain float32 scan,
+    each output within `ssd_limit` of the plain one's largest entry: at the
+    configurations' (P, S, chunk) in float32 and bfloat16, and at the train
+    cell's shape in bfloat16, where both are also timed (a forward under
+    no_grad; a backward alone on a kept graph) beside the bound: the
+    larger of the needed FLOPs over the card's float32 FFMA rate and the
+    bytes over its HBM rate.  ``errors.max`` keeps each direction's
+    largest error as a share of its limit."""
+    import torch
+
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+    from repro_torch.models.mamba2 import ssd_chunked_plain
+
+    def inputs(B, T, H, P, S, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        t = [torch.randn(B, T, H, P, generator=g).to(dtype),
+             torch.rand(B, T, H, generator=g) * 0.1 + 0.01,
+             -torch.rand(H, generator=g) * 2 - 0.1,
+             torch.randn(B, T, S, generator=g).to(dtype),
+             torch.randn(B, T, S, generator=g).to(dtype),
+             torch.randn(B, T, H, P, generator=g).to(dtype)]
+        t = [v.to(dev) for v in t]
+        return [v.requires_grad_() for v in t[:5]], t[5]
+
+    def plain32(x, dt, A, B, C, chunk):
+        return ssd_chunked_plain(x.float(), dt, A, B.float(), C.float(),
+                                 chunk)
+
+    def outputs(fn, leaves, dy, chunk):
+        y, h = fn(*leaves, chunk)
+        grads = torch.autograd.grad(y, leaves, dy.to(y.dtype))
+        return [y.detach().float(), h.detach()] + [g.float() for g in grads]
+
+    readings = {}
+
+    def compare(what, got, want, bf16):
+        errs = {}
+        for name, a, b in zip(SSD_OUTPUTS, got, want):
+            err = float((a - b).abs().max() / b.abs().max())
+            lim = ssd_limit(name, bf16)
+            check(bool(torch.isfinite(a).all()) and err <= lim,
+                  f"ssd {what} {name}: {err:.3e} of the largest > {lim:.3e}")
+            key = "ssd_fwd" if name in ("y", "h_final") else "ssd_bwd"
+            errors.max[key] = max(errors.max[key], err / lim)
+            errs[name] = err
+        readings[what] = errs
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (P, S, chunk) in enumerate(SSD_CHECKS):
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves, dy = inputs(2, 4 * chunk, 3, P, S, dtype, 60 + i)
+            compare(f"P {P} S {S} chunk {chunk} {dtype}",
+                    outputs(ssd_kernel_apply, leaves, dy, chunk),
+                    outputs(plain32, leaves, dy, chunk),
+                    dtype == torch.bfloat16)
+
+    B, T, H, P, S, L = SSD_CELL
+    shape = f"B {B}, T {T}, H {H}, P {P}, S {S}, L {L}, bfloat16"
+    leaves, dy = inputs(B, T, H, P, S, torch.bfloat16, 70)
+    rows, results = {}, {}
+    for name, fn in (("kernel", ssd_kernel_apply), ("plain", plain32)):
+        with torch.no_grad():
+            rows[f"{name}_fwd"] = time_ms(lambda: fn(*leaves, L), 3)
+        y, _ = fn(*leaves, L)
+        rows[f"{name}_bwd"] = time_ms(lambda: torch.autograd.grad(
+            y, leaves, dy.to(y.dtype), retain_graph=True), 3)
+        del y
+        results[name] = outputs(fn, leaves, dy, L)
+        torch.cuda.empty_cache()
+    compare(shape, results["kernel"], results["plain"], True)
+    del results
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    log(f"  ssd: {len(SSD_CHECKS)} (P, S, chunk) x float32, bfloat16 and "
+        f"the train cell's shape within their limits of the plain scan; "
+        f"largest error over its limit: forward "
+        f"{errors.max['ssd_fwd']:.3f}, backward {errors.max['ssd_bwd']:.3f}")
+    log(json.dumps({"ssd_errors": readings}))
+    out = {}
+    for name, (flops, nbytes, design) in ssd_work(B, T, H, P, S, L).items():
+        side = name.split("_")[1]
+        times = {"float32 FFMA": flops / FFMA_PER_S * 1e3,
+                 "HBM bytes": nbytes / peak_rates()[0] * 1e3}
+        limit = max(times, key=times.get)
+        out[name] = {"ms": rows[f"kernel_{side}"],
+                     "plain_ms": rows[f"plain_{side}"],
+                     "bound_ms": times[limit],
+                     "bound_by": ("bytes" if limit == "HBM bytes"
+                                  else "operations"),
+                     "bound_limit": limit, "flops": flops, "bytes": nbytes,
+                     "design_flops": design,
+                     "design_ms_at_ffma": design / FFMA_PER_S * 1e3,
+                     "max_err_over_limit": errors.max[name],
+                     "errors_at_shape": {k: v for k, v in
+                                         readings[shape].items()
+                                         if (k in ("y", "h_final"))
+                                         == (side == "fwd")},
+                     "shape": shape}
+    log(json.dumps({"ssd": out}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2270,9 +2437,12 @@ def families_phase(dev) -> dict:
     """11c: mamba2-2.7b at full config and mixtral-8x7b at full width cut
     to 2 layers, each serving weights through ``serve_loop``: a prefill
     over LLM_PROMPT tokens and FAMILY_STEPS greedy decode steps, finite
-    logits; steady prefill and decode times beside the decode bound."""
+    logits; steady prefill and decode times beside the decode bound.
+    Launches are counted around each first prefill (the "llm_families"
+    path): the SSD scan's forward once a Mamba layer."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.models import model as M
     from repro_torch.serve.serve_loop import make_decode_step, make_prefill_step
 
@@ -2287,8 +2457,17 @@ def families_phase(dev) -> dict:
         model = M.init_params(cfg, seed=LLM_SEED, device=dev)
         model.cast_for_serving()
         prompts = rng.integers(0, cfg.vocab, (LLM_BATCH, LLM_PROMPT))
+        torch.cuda.synchronize()
+        build.reset_launches()                    # the path starts
         logits, cache, cur = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)           # the path ends
         check(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+        check(launches["ssd_fwd"] == _mamba_layers(cfg)
+              and launches["ssd_bwd"] == 0,
+              f"{arch}: prefill launched the scan kernels "
+              f"{launches['ssd_fwd']}/{launches['ssd_bwd']} times, not "
+              f"{_mamba_layers(cfg)}/0")
         tok = torch.argmax(logits[:, -1:], dim=-1)
         for _ in range(FAMILY_STEPS):
             cur += 1
@@ -2296,7 +2475,7 @@ def families_phase(dev) -> dict:
             check(bool(torch.isfinite(logits).all()),
                   f"{arch}: decode logits at {cur}")
             tok = torch.argmax(logits[:, -1:], dim=-1)
-        r = {"num_layers": cfg.num_layers,
+        r = {"num_layers": cfg.num_layers, "launches": launches,
              "weight_bytes": model.weight_bytes(),
              "cache_bytes": M.cache_bytes(cache),
              "prefill_ms": time_ms(lambda: prefill(model,
@@ -2390,6 +2569,64 @@ def _chunked_ce_gap(cfg, params, batch) -> float:
             logits, -1, labels.clamp(min=0)[..., None])[..., 0]
         full = (nll * valid).sum() / valid.sum()
         return abs(ce.item() - full.item()) / abs(full.item())
+
+
+def _mamba_layers(cfg) -> int:
+    kinds = [spec.kind for spec in cfg.group]
+    return kinds.count("mamba") * cfg.num_layers // len(kinds)
+
+
+# the train cell's step at a small width: granite-4.0-h-small's smoke
+# config, checkpointed as its full config is, in MAMBA_TRAIN_MICRO
+# microbatches
+MAMBA_TRAIN_ARCH = "granite-4.0-h-small"
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_MICRO = 4, 64, 2
+
+
+def mamba_train_path(dev) -> dict:
+    """12b: one step of the port's train step (``make_train_step``) on
+    MAMBA_TRAIN_ARCH's smoke config with the full config's remat, launches
+    counted around it as the "mamba_train" path: the SSD scan's forward
+    twice a Mamba layer and microbatch (the forward and the checkpoint's
+    recompute), its backward once; loss finite."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(MAMBA_TRAIN_ARCH, smoke=True),
+                              remat=get_config(MAMBA_TRAIN_ARCH).remat)
+    opt = OptConfig()
+    model = M.init_params(cfg, seed=LLM_SEED, device=dev).requires_grad_()
+    state = init_opt_state(model, opt)
+    step = make_train_step(cfg, opt, microbatch=MAMBA_TRAIN_MICRO,
+                           device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+        seed=LLM_SEED).batch_at(0).items()}
+    torch.cuda.synchronize()
+    build.reset_launches()                        # the path starts
+    _, _, metrics = step(model, state, batch, 0)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)                 # the path ends
+    n = _mamba_layers(cfg) * MAMBA_TRAIN_MICRO
+    want = (n * (2 if cfg.remat else 1), n)
+    check(bool(torch.isfinite(metrics["loss"])),
+          f"mamba_train: loss {metrics['loss']}")
+    check((counts["ssd_fwd"], counts["ssd_bwd"]) == want,
+          f"mamba_train: scan kernels launched {counts['ssd_fwd']}/"
+          f"{counts['ssd_bwd']} times, not {want[0]}/{want[1]}")
+    log(f"  mamba_train: {MAMBA_TRAIN_ARCH} smoke (remat {cfg.remat}), "
+        f"{MAMBA_TRAIN_MICRO} microbatches of {MAMBA_TRAIN_SEQ} tokens: "
+        f"ssd_fwd {counts['ssd_fwd']}, ssd_bwd {counts['ssd_bwd']}, loss "
+        f"{float(metrics['loss']):.4f}")
+    return counts
 
 
 def llm_train_phase(dev) -> tuple:
@@ -3990,7 +4227,7 @@ def mrmc_bandwidth(times: dict) -> dict:
 
 
 def kernel_entries(rows: dict, times: dict, paths: dict, errors: Errors,
-                   with_baseline: bool, samplers: dict) -> list:
+                   with_baseline: bool, samplers: dict, ssd: dict) -> list:
     """The ``kernels`` JSON entries: each kernel's head-preset row from
     :func:`time_kernels`, its times from :func:`merge_times`, the launch
     counts of every main path (``paths``: name -> counts; the phase-5
@@ -4048,6 +4285,25 @@ def kernel_entries(rows: dict, times: dict, paths: dict, errors: Errors,
             "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "ok": errors.max[name] == 0, **samplers[name],
+        })
+    for name in ("ssd_fwd", "ssd_bwd"):
+        src, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {k: c[name] for k, c in paths.items()},
+            "on_main_path": (paths["llm_families"][name]
+                             + paths["mamba_train"][name]) > 0,
+            "note": "the LLM train and prefill paths' Mamba-2 scan: "
+                    "llm_families is mamba2-2.7b's prefill (once a layer), "
+                    "mamba_train one train step at the smoke width (the "
+                    "forward and its recompute, then the backward, a layer "
+                    "and microbatch); the other paths run no Mamba layer",
+            "prev_ms": None, "prev_note": "timed in phase 3 alone",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "ok": errors.max[name] <= 1.0, **ssd[name],
         })
     return kernels
 
@@ -4167,14 +4423,18 @@ def run(args, cache: Path) -> int:
     phases["build_s"] = time.perf_counter() - t
     log(f"[2] build: {build.build_seconds:.1f} s nvcc+link "
         f"({build.library_path().name})")
-    for line in build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("    " + line.strip())
+    build.ssd_library()
+    for path in (build.build_log_path(),
+                 build.ssd_library_path().with_suffix(".log")):
+        for line in path.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("    " + line.strip())
 
     errors = Errors()
     t = time.perf_counter()
     log("[3] kernels against their plain versions")
     samplers = check_kernels(dev, errors)
+    ssd = check_ssd(dev, errors)
     phases["kernels_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -4296,6 +4556,7 @@ def run(args, cache: Path) -> int:
     fresh_memory()
     train = {"held_gb_at_start": torch.cuda.memory_allocated() / 2**30}
     train["llm_train"], launches_train = llm_train_phase(dev)
+    launches_mamba_train = mamba_train_path(dev)
     train["resume"] = resume_phase(dev)
     train["example"] = train_example_phase()
     log(json.dumps({"train": train}))
@@ -4334,10 +4595,14 @@ def run(args, cache: Path) -> int:
              "presto_keystream": launches_presto,
              "sharded": launches_sharded, "llm_serve": launches_llm,
              "llm_train": launches_train,
+             "llm_families": {k: sum(r["launches"][k]
+                                     for r in llm["families"].values())
+                              for k in SOURCES},
+             "mamba_train": launches_mamba_train,
              "llm_sharded": launches_sharded_llm,
              "llm_sharded_train": launches_sharded_train}
     kernels = kernel_entries(rows, times, paths, errors,
-                             baseline is not None, samplers)
+                             baseline is not None, samplers, ssd)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels (one shared library, ctypes).
+"""Build and load the port's CUDA kernels (shared libraries, ctypes).
 
-The four sources under ``repro_torch/csrc`` have a plain C interface and
-no PyTorch headers, so ``nvcc`` builds them in seconds.  The library is
-built at first use into ``<checkout>/build/kernels/``, named by a content
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the cached file.  Each source compiles in its own
-``nvcc`` process, all started together, then one link step.
+The sources under ``repro_torch/csrc`` have a plain C interface and no
+PyTorch headers, so ``nvcc`` builds them in seconds.  Two libraries: the
+keystream path's four sources (:func:`library`) and the Mamba-2 SSD scan
+(:func:`ssd_library`, ``ssd.cu``), so a process that never runs the scan
+never builds or loads it.  A library is built at first use into
+``<checkout>/build/kernels/``, named by a content hash of its sources and
+the flags, so an edited source rebuilds and an unchanged one loads the
+cached file.  Each source compiles in its own ``nvcc`` process, all
+started together, then one link step.
 
 Every C entry point takes device pointers, sizes and the caller's CUDA
 stream, launches without synchronising, and returns ``cudaGetLastError()``;
@@ -31,12 +34,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("aes.cu", "mrmc.cu", "keystream.cu", "sampler.cu")
 HEADERS = ("mrmc.cuh",)
+SSD_SOURCES = ("ssd.cu",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"aes_ctr": 0, "aes_xof": 0, "mrmc": 0, "keystream": 0,
-            "sampler_uniform": 0, "sampler_gauss": 0}
+            "sampler_uniform": 0, "sampler_gauss": 0, "ssd_fwd": 0,
+            "ssd_bwd": 0}
 #: The same launches by the name of the thread that made them.
 THREAD_LAUNCHES: dict = {}
 _launch_lock = threading.Lock()
@@ -54,9 +59,15 @@ _SIGNATURES = {
     "repro_sampler_uniform": [_P, _I, _I, _I, _I, _I, _U32, _U32, _P, _P],
     "repro_sampler_gauss": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
 }
+_SSD_SIGNATURES = {
+    "repro_ssd_fwd": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "repro_ssd_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_P],
+}
 
 _lib = None
-#: seconds the last build took (0.0 when the cached library was loaded)
+_ssd_lib = None
+#: seconds the last build of the keystream library took (0.0 when the
+#: cached one was loaded)
 build_seconds = 0.0
 
 
@@ -90,32 +101,38 @@ def _nvcc() -> str:
     return str(path)
 
 
-def source_hash() -> str:
+def source_hash(files=SOURCES + HEADERS) -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in files:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join((ARCH,) + FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libreprokernels-{source_hash()}.so"
+def library_path(stem: str = "libreprokernels",
+                 files=SOURCES + HEADERS) -> Path:
+    return BUILD_DIR / f"{stem}-{source_hash(files)}.so"
 
 
 def build_log_path() -> Path:
     return library_path().with_suffix(".log")
 
 
-def _build(target: Path) -> None:
-    global build_seconds
+def ssd_library_path() -> Path:
+    return library_path("libreprossd", SSD_SOURCES)
+
+
+def _build(target: Path, sources) -> float:
+    """Compile ``sources`` and link them into ``target``; the seconds it
+    took."""
     t0 = time.perf_counter()
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"tmp-{os.getpid()}"
     tmp.mkdir(exist_ok=True)
     procs = []
-    for src in SOURCES:
+    for src in sources:
         obj = tmp / (src + ".o")
         cmd = [nvcc, ARCH, *FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
@@ -144,31 +161,52 @@ def _build(target: Path) -> None:
                            f"\n{text}")
     os.replace(so, target)
     shutil.rmtree(tmp, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def _load(path: Path, signatures):
+    lib = ctypes.CDLL(str(path))
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def library():
-    """The loaded kernel library, built first if the sources changed."""
-    global _lib
+    """The keystream path's kernel library, built first if the sources
+    changed."""
+    global _lib, build_seconds
     if _lib is None:
         path = library_path()
         if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _lib = lib
+            build_seconds = _build(path, SOURCES)
+        _lib = _load(path, _SIGNATURES)
     return _lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error."""
+def ssd_library():
+    """The SSD scan's kernel library (``ssd.cu``), built first if the
+    source changed."""
+    global _ssd_lib
+    if _ssd_lib is None:
+        path = ssd_library_path()
+        if not path.exists():
+            _build(path, SSD_SOURCES)
+        lib = _load(path, _SSD_SIGNATURES)
+        lib.repro_ssd_workspace.argtypes = [_I] * 7
+        lib.repro_ssd_workspace.restype = ctypes.c_longlong
+        _ssd_lib = lib
+    return _ssd_lib
+
+
+def check(err: int, what: str, lib=None) -> None:
+    """Raise if a launch returned a CUDA error (``lib``: the library that
+    launched, the keystream one by default)."""
     if err != 0:
-        msg = library().repro_error_string(err).decode()
+        msg = (lib or library()).repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 

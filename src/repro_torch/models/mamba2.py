@@ -5,11 +5,18 @@ The port's copy of `repro.models.mamba2`.  Within a chunk (length L) the
 output is an attention-like quadratic form masked by the cumulative decay;
 across chunks a small recurrent state (B, heads, head_dim, state) is
 carried by a loop.  All decay/softplus math runs in float32.
+
+On real CUDA tensors the chunked scan, forward and backward, runs as
+hand-written kernels (`repro_torch.kernels.ssd.ops`); CPU and fake
+tensors (the dry run's) take the plain version here.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._guards import detect_fake_mode
+
+from repro_torch.kernels.ssd.ops import ssd_kernel_apply
 
 
 def causal_conv(u, w, b=None):
@@ -51,7 +58,18 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     Cm: (B, T, S)    output projections
     h0: (B, H, P, S) initial state or None
     Returns (y: (B, T, H, P), h_final: (B, H, P, S)).
+
+    Real CUDA tensors go to the kernels (which raise on a shape they do
+    not take); CPU and fake tensors to :func:`ssd_chunked_plain`.
     """
+    if x.is_cuda and detect_fake_mode((x,)) is None:
+        return ssd_kernel_apply(x, dt, A, Bm, Cm, chunk, h0)
+    return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, h0)
+
+
+def ssd_chunked_plain(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """:func:`ssd_chunked` in plain PyTorch, on any device: the version
+    the kernels are held to."""
     Bsz, T, H, P = x.shape
     S = Bm.shape[-1]
     L = min(chunk, T)

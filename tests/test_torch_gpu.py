@@ -956,3 +956,192 @@ def test_card_sharded_train_step_matches_the_cpu_in_float32(cuda, no_tf32,
     for (l0, g0), (l1, g1) in zip(*runs):
         assert abs(l1 - l0) <= 1e-4 * abs(l0)
         assert abs(g1 - g0) <= 1e-4 * abs(g0)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan (csrc/ssd.cu) against autograd of the plain version
+# ---------------------------------------------------------------------------
+# (P, S, chunk) of granite-4.0-h-small and mamba2-2.7b, jamba-1.5-large, the
+# smoke variants (chunk 16 and 32)
+SSD_SHAPES = [(64, 128, 256), (64, 16, 128), (16, 16, 32), (16, 16, 16)]
+SSD_NAMES = ("y", "h_final", "dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def _ssd_inputs(B, T, H, P, S, dtype, with_h0, device, seed, dt=None,
+                A=None):
+    g = torch.Generator().manual_seed(seed)
+    t = {"x": torch.randn(B, T, H, P, generator=g).to(dtype),
+         "dt": (torch.rand(B, T, H, generator=g) * 0.1 + 0.01
+                if dt is None else torch.full((B, T, H), dt)),
+         "A": (-torch.rand(H, generator=g) * 2 - 0.1
+               if A is None else torch.full((H,), A)),
+         "B": torch.randn(B, T, S, generator=g).to(dtype),
+         "C": torch.randn(B, T, S, generator=g).to(dtype),
+         "h0": torch.randn(B, H, P, S, generator=g) if with_h0 else None,
+         "dy": torch.randn(B, T, H, P, generator=g).to(dtype),
+         "dh": torch.randn(B, H, P, S, generator=g)}
+    return {k: None if v is None else v.to(device) for k, v in t.items()}
+
+
+def _ssd_run(fn, t, chunk):
+    """y, h_final and the gradients of <y, dy> + <h_final, dh>, float32."""
+    names = ["x", "dt", "A", "B", "C"] + (["h0"] if t["h0"] is not None
+                                          else [])
+    leaves = [t[n].detach().clone().requires_grad_() for n in names]
+    y, h = fn(*leaves[:5], chunk, leaves[5] if len(leaves) > 5 else None)
+    ((y.float() * t["dy"].float()).sum() + (h * t["dh"]).sum()).backward()
+    out = [y.detach().float(), h.detach()] + [v.grad.float() for v in leaves]
+    return out + [None] * (len(SSD_NAMES) - len(out))
+
+
+def _ssd_plain32(x, dt, A, B, C, chunk, h0):
+    from repro_torch.models import mamba2 as M2
+
+    return M2.ssd_chunked_plain(x.float(), dt, A, B.float(), C.float(),
+                                chunk, h0)
+
+
+def _ssd_limit(name, dtype):
+    """What an output may differ from the plain float32 path's by, as a
+    share of the plain output's largest entry: 1e-4 in float32 (dA, a sum
+    over T*H*P products that cancel, 1e-3), plus, where the kernel returns
+    bfloat16, one rounding of the largest entry: half a bfloat16 unit
+    (2^-8) for y, which the plain path keeps in float32, one unit (2^-7)
+    for dx, dB and dC, which autograd rounds to the bfloat16 leaves on the
+    plain side too."""
+    tol = 1e-3 if name == "dA" else 1e-4
+    if dtype == torch.bfloat16 and name == "y":
+        return tol + 2.0 ** -8
+    if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+        return tol + 2.0 ** -7
+    return tol
+
+
+def _ssd_close(got, want, dtype):
+    """Each output finite and within `_ssd_limit` of the plain float32
+    path's largest entry."""
+    for name, a, b in zip(SSD_NAMES, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= _ssd_limit(name, dtype) * b.abs().max().item(), \
+            (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("P,S,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, no_tf32, P, S, chunk, short,
+                                  with_h0):
+    """T = 4 chunks, or a short prefill T < chunk (a ragged L = T)."""
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+
+    T = chunk // 2 + 3 if short else 4 * chunk
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _ssd_inputs(2, T, 3, P, S, dtype, with_h0, cuda, seed=P + S + T)
+        got = _ssd_run(ssd_kernel_apply, t, chunk)
+        want = _ssd_run(_ssd_plain32, t, chunk)
+        _ssd_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_nan_free_at_published_widths(cuda, no_tf32):
+    """dt 0.1, A -16, L 256: the decay above the diagonal passes exp's
+    range; masked before the exp, every output stays finite."""
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+
+    t = _ssd_inputs(1, 512, 2, 64, 128, torch.float32, True, cuda, seed=7,
+                    dt=0.1, A=-16.0)
+    got = _ssd_run(ssd_kernel_apply, t, 256)
+    want = _ssd_run(_ssd_plain32, t, 256)
+    _ssd_close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_repeats_bit_for_bit(cuda):
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+
+    t = _ssd_inputs(1, 512, 4, 64, 128, torch.bfloat16, True, cuda, seed=8)
+    a, b = (_ssd_run(ssd_kernel_apply, t, 256) for _ in range(2))
+    for name, u, v in zip(SSD_NAMES, a, b):
+        assert torch.equal(u, v), name
+
+
+@pytest.mark.gpu
+def test_ssd_launches_in_a_mamba_layer(cuda):
+    """One forward and one backward of granite-4.0-h-small's smoke Mamba-2
+    layer: one launch each way, on the card's path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("granite-4.0-h-small", smoke=True)
+    m = M.init_params(cfg, seed=0, device=cuda)
+    i = next(j for j, s in enumerate(cfg.group) if s.kind == "mamba")
+    p = {k: v[0] for k, v in m.tree()["blocks"][i].items()}
+    x = torch.randn(2, 64, cfg.d_model, device=cuda,
+                    dtype=M.dtype_of(cfg), requires_grad=True)
+    build.reset_launches()
+    out, _ = M._mamba_apply(cfg, p, x)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd_fwd"] == 1 and build.LAUNCHES["ssd_bwd"] == 1
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_holds_no_chunk_by_chunk_tensor(cuda):
+    """At granite-4.0-h-small's widths (T 8192, 128 heads of 64, state
+    128, L 256) a forward and backward peak below the size of one
+    (chunks, L, L, heads) float32 tensor, which the plain version makes
+    several of."""
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+
+    t = _ssd_inputs(1, 8192, 128, 64, 128, torch.bfloat16, False, cuda,
+                    seed=9)
+    leaves = [t[n].requires_grad_() for n in ("x", "dt", "A", "B", "C")]
+    one = 32 * 256 * 256 * 128 * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, _ = ssd_kernel_apply(*leaves, 256)
+    torch.autograd.backward([y], [t["dy"]])
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < one
+    assert all(torch.isfinite(v.grad).all() for v in leaves)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_matches_plain_at_granite_widths(cuda, no_tf32):
+    """The train cell's shape (T 8192, 128 heads of 64, state 128, L 256)
+    in bfloat16: every output and gradient within its limit of the plain
+    float32 scan's."""
+    from repro_torch.kernels.ssd.ops import ssd_kernel_apply
+
+    t = _ssd_inputs(1, 8192, 128, 64, 128, torch.bfloat16, False, cuda,
+                    seed=10)
+    got = _ssd_run(ssd_kernel_apply, t, 256)
+    torch.cuda.empty_cache()
+    want = _ssd_run(_ssd_plain32, t, 256)
+    _ssd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,chunk,dtype", [
+    ((1, 64, 2, 128, 16), 32, torch.float32),    # P > 64
+    ((1, 64, 2, 16, 256), 32, torch.float32),    # S > 128
+    ((1, 64, 2, 18, 16), 32, torch.float32),     # P not a multiple of 4
+    ((1, 1024, 2, 16, 16), 512, torch.float32),  # L > 256
+    ((1, 96, 2, 16, 16), 64, torch.float32),     # L does not divide T
+    ((1, 64, 2, 16, 16), 32, torch.float16),
+])
+def test_ssd_kernel_raises_on_a_shape_it_does_not_take(cuda, shape, chunk,
+                                                       dtype):
+    from repro_torch.models import mamba2 as M2
+
+    B, T, H, P, S = shape
+    t = _ssd_inputs(B, T, H, P, S, dtype, False, cuda, seed=1)
+    with pytest.raises(ValueError, match=r"ssd kernel: no kernel for x"):
+        M2.ssd_chunked(t["x"], t["dt"], t["A"], t["B"], t["C"], chunk)
